@@ -1,0 +1,594 @@
+#!/usr/bin/env python3
+"""On-card smoke check of the PyTorch/CUDA port (multiprime_tpu_torch).
+
+Run from the root of a checkout on a machine with one CUDA GPU:
+
+    python3 chip_smoke.py [--report PATH] [--families F --members M
+                           --singletons S]
+
+Phases (each prints one line or more; any failure exits non-zero before
+the final line):
+
+1. card and build: the card's name and power limit, then nvcc builds every
+   kernel in multiprime_tpu_torch/csrc from the checkout's sources;
+2. the hit-code kernel against its plain PyTorch version, exact int8
+   equality, on an edge-case grid and at the main path's batch shape, with
+   CUDA-event times of kernel, plain version and a conv1d yardstick;
+3. find_hits_batched on the card against find_hits_numpy on the host, and
+   a device scan whose hits overflow the first max_hits (the retry);
+4. `run` through the CLI in a subprocess on the seeded 21k-sequence corpus
+   (20 families x 1000 members + 1000 singletons, 900 bp), then the rule-19
+   scan rerun on the host backend: BWT_coverage outputs byte-identical;
+5. `scan` through the CLI on the run's aggregated candidate set against
+   the 21k targets, device vs host byte-identical; then -m 4 on 4200
+   targets on the device, held to the plain version through find_hits;
+6. the kernels line.
+
+The second-to-last line is the kernels JSON, the last line
+{"ok": true, "device": {...}}.  Exits non-zero without a result when no
+CUDA device is available or the package is not beside this script.
+"""
+
+import argparse
+import glob
+import json
+import os
+import pickle
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core rate
+DEVICE = "cuda"
+
+
+def fail(msg):
+    print("FAIL: " + msg, flush=True)
+    sys.exit(1)
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def cuda_ms(fn, iters):
+    """Mean device time of fn() in ms over iters calls, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def random_seqs(rng, n, lo, hi, letters="ACGT"):
+    lut = np.array(list(letters))
+    return ["".join(rng.choice(lut, size=int(rng.integers(lo, hi + 1))))
+            for _ in range(n)]
+
+
+def mutate(rng, s, k, letters="ACGT"):
+    s = list(s)
+    for _ in range(k):
+        s[int(rng.integers(0, len(s)))] = str(rng.choice(list(letters)))
+    return "".join(s)
+
+
+def pattern_onehots(ms, patterns, term):
+    """(p1h, s1h) exactly as validate.scan.scan_hits builds them, padded to
+    a multiple of 8 with zero rows."""
+    p1h = ms.encode_primers(patterns)
+    s1h = p1h.copy()
+    if term > 0:
+        s1h[:, :-term, :] = 0
+    else:
+        s1h[:] = 0
+    pad = -p1h.shape[0] % 8
+    if pad:
+        z = np.zeros((pad,) + p1h.shape[1:], p1h.dtype)
+        p1h, s1h = np.concatenate([p1h, z]), np.concatenate([s1h, z])
+    return p1h, s1h
+
+
+def planted_patterns(rng, seqs, n, plen, degenerate=True):
+    """Patterns cut from the targets with 0-3 substitutions (some with
+    IUPAC codes), so that scans find hits."""
+    out = []
+    for _ in range(n):
+        s = seqs[int(rng.integers(0, len(seqs)))]
+        if len(s) < plen:
+            out.append(random_seqs(rng, 1, plen, plen)[0])
+            continue
+        o = int(rng.integers(0, len(s) - plen + 1))
+        pat = mutate(rng, s[o:o + plen].upper().replace("N", "A"),
+                     int(rng.integers(0, 4)))
+        if degenerate and rng.random() < 0.3:
+            pat = mutate(rng, pat, 1, letters="RYSWKM")
+        out.append(pat)
+    return out
+
+
+def phase_build(args, report):
+    from multiprime_tpu_torch.ops import _cuda
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail("nvidia-smi failed: " + smi.stderr)
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
+    report["card"] = card
+    t0 = time.time()
+    _cuda.build(force=True)
+    report["build_s"] = round(time.time() - t0, 3)
+    say("phase 1 build: %.2f s for %s" % (report["build_s"],
+                                          sorted(_cuda.BUILD_LOG)))
+    for name, log in sorted(_cuda.BUILD_LOG.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say("  ptxas %s: %s" % (name, line.strip()))
+    report["ptxas"] = _cuda.BUILD_LOG
+
+
+def phase_kernel(args, report):
+    import torch
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(args.seed)
+    cases = 0
+    for plen in (8, 18, 20, 32, 63):
+        for mm in range(5):
+            for term in (0, 1, 2, 4, plen + 1):
+                n = int(rng.integers(1, 40))
+                seqs = random_seqs(rng, n, max(1, plen - 3), 300,
+                                   letters="ACGTacgtNRY-")
+                n_pat = int(rng.choice([1, 7, 45, 77, 130]))
+                pats = planted_patterns(rng, seqs, n_pat, plen)
+                if rng.random() < 0.2:
+                    pats[0] = "N" * plen             # matches nothing
+                p1h, s1h = pattern_onehots(ms, pats, term)
+                masks, _ = ms.encode_target_masks(seqs)
+                tm = torch.from_numpy(masks).to(dev)
+                planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+                got = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm,
+                                   term=term)
+                want = ms.hit_codes_reference(tm, planes, sfx, plen=plen,
+                                              mm=mm, term=term)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail("hit_codes differs from the plain version at plen=%d "
+                         "mm=%d term=%d N=%d L=%d P=%d" % (
+                             plen, mm, term, n, masks.shape[1],
+                             planes.shape[0]))
+                cases += 1
+    say("phase 2 grid: %d cases equal (exact int8)" % cases)
+
+    # the main path's batch shape: rule-19 scan of a 2000-pattern set
+    plen, mm, term, p, length = 18, 1, 1, 2000, 1024
+    n = ms.safe_batch_size(2048, length - plen + 1, p)
+    seqs = random_seqs(rng, n, 850, 950, letters="ACGTACGTACGTN")
+    pats = planted_patterns(rng, seqs, p, plen)
+    p1h, s1h = pattern_onehots(ms, pats, term)
+    masks, _ = ms.encode_target_masks(seqs, length=length)
+    report["hit_codes"] = measure_kernel(ms, masks, p1h, s1h, mm, term,
+                                         "phase 2 main shape")
+
+
+def measure_kernel(ms, masks, p1h, s1h, mm, term, label):
+    """Kernel vs plain version (exact) on one batch, then CUDA-event times
+    of the kernel, the plain version and a conv1d yardstick, beside the
+    least time the card could take (bytes or int8 operations)."""
+    import torch
+    dev = torch.device(DEVICE)
+    plen = p1h.shape[1]
+    tm = torch.from_numpy(masks).to(dev)
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    got = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term)
+    want = ms.hit_codes_reference(tm, planes, sfx, plen=plen, mm=mm,
+                                  term=term)
+    torch.cuda.synchronize()
+    max_err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    if max_err != 0:
+        fail("hit_codes differs from the plain version at the %s" % label)
+    n, length = masks.shape
+    n_out, p_all = got.shape[1], got.shape[2]
+    hits = int((got > 0).sum())
+    del got, want
+    kernel_ms = cuda_ms(lambda: ms.hit_codes(tm, planes, sfx, plen=plen,
+                                             mm=mm, term=term), 20)
+    plain_ms = cuda_ms(lambda: ms.hit_codes_reference(
+        tm, planes, sfx, plen=plen, mm=mm, term=term), 3)
+    # yardstick: one conv1d over the combined weight plus its threshold
+    x = ms.expand_masks(tm).permute(0, 2, 1).to(torch.float32).contiguous()
+    weight = (ms._unpack_planes(planes, plen)
+              + 64 * ms._unpack_planes(sfx, plen)).contiguous()
+    thresh = 64 * term + plen - mm
+
+    def library():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            score = torch.nn.functional.conv1d(x, weight)
+        return torch.where(score >= thresh, plen + 1 + 64 * term - score,
+                           0).to(torch.int8)
+    library_ms = cuda_ms(library, 3)
+    # each input read once (masks, both plane sets), the codes written once;
+    # operations of the int8-matmul form: two [N*O, 4*plen] x [4*plen, P]
+    in_bytes = n * length + 2 * planes.numel() * 8
+    out_bytes = n * n_out * p_all
+    ops = 2 * 2 * n * n_out * p_all * 4 * plen
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    out = {"shape": {"N": n, "L": length, "O": n_out, "P": p_all,
+                     "plen": plen, "mm": mm, "term": term},
+           "hits": hits, "max_abs_err": max_err, "ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": in_bytes + out_bytes, "ops": ops}
+    say("%s N=%d L=%d O=%d P=%d plen=%d mm=%d term=%d: equal, %d hits; "
+        "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s)"
+        % (label, n, length, n_out, p_all, plen, mm, term, hits, kernel_ms,
+           plain_ms, library_ms, out["bound_ms"], out["bound_by"]))
+    return out
+
+
+def phase_find_hits(args, report):
+    import torch
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.validate import scan as vscan
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(args.seed + 1)
+    plen, mm, term, bs, b = 20, 2, 3, 64, 3
+    seqs = random_seqs(rng, bs * b - 5, 100, 1000, letters="ACGTACGTACGTNa")
+    pats = planted_patterns(rng, seqs, 250, plen)
+    p1h, s1h = pattern_onehots(ms, pats, term)
+    masks, lens = ms.encode_target_masks(seqs, length=1024)
+    tm = np.zeros((b * bs, 1024), np.uint8)
+    lm = np.zeros(b * bs, np.int32)
+    tm[:len(seqs)], lm[:len(seqs)] = masks, lens
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    max_hits = 1 << 14
+    packs = ms.find_hits_batched(
+        torch.from_numpy(tm.reshape(b, bs, -1)).to(dev),
+        torch.from_numpy(lm.reshape(b, bs)).to(dev), planes, sfx, plen=plen,
+        mm=mm, term=term, max_hits=max_hits, want_mism=True).cpu().numpy()
+    n_out, p_all = 1024 - plen + 1, p1h.shape[0]
+    got = []
+    for bi in range(b):
+        seq, pos, pat, mis, n_hits = ms.decode_packed(packs[bi], n_out,
+                                                      p_all, max_hits)
+        if n_hits > max_hits:
+            fail("phase 3 batch overflowed its max_hits")
+        got.extend(zip((seq + bi * bs).tolist(), pos.tolist(), pat.tolist(),
+                       mis.tolist()))
+    t1h, _ = ms.encode_targets(seqs, length=1024)
+    want = [tuple(int(v) for v in row) for row in ms.find_hits_numpy(
+        t1h, lens, p1h, s1h, mm=mm, term=term)]
+    if got != want:
+        fail("find_hits_batched differs from find_hits_numpy (%d vs %d hits)"
+             % (len(got), len(want)))
+    say("phase 3 find_hits_batched == find_hits_numpy: %d hits" % len(got))
+    # a scan whose first max_hits (2**17) overflows: the retry path
+    # 8 patterns hitting every window of the 40 poly-A rows: 314k hits
+    dense = ["A" * 1000] * 40 + random_seqs(rng, 24, 900, 1000)
+    pats = ["A" * 18] + ["A" * k + "C" + "A" * (17 - k) for k in range(7)]
+    dev_hits = vscan.scan_hits(dense, pats, vscan.ScanParams(
+        mm=1, term=1, backend="device", want_mism=True), device=dev)
+    host_hits = vscan.scan_hits(dense, pats, vscan.ScanParams(
+        mm=1, term=1, backend="numpy"), device=dev)
+    if dev_hits != host_hits or len(dev_hits) <= 1 << 17:
+        fail("retry scan: %d device hits vs %d host hits"
+             % (len(dev_hits), len(host_hits)))
+    say("phase 3 retry scan (n_hits > 2**17): %d hits equal to the host"
+        % len(dev_hits))
+    report["find_hits"] = {"hits": len(got), "retry_hits": len(dev_hits)}
+
+
+def generate_corpus(fa_path, seed, n_fams, members, singletons):
+    """The 21k scale corpus: n_fams families x members (900 bp; divergence
+    cycling 1/2/5/8%, every tenth member an exact copy of the family base)
+    + singletons random 900 bp sequences."""
+    rng = np.random.default_rng(seed)
+    lut = np.array(list("ACGT"))
+    with open(fa_path, "w") as f:
+        divergences = (0.01, 0.02, 0.05, 0.08)
+        for fam in range(n_fams):
+            div = divergences[fam % len(divergences)]
+            base = np.frombuffer(
+                "".join(rng.choice(lut, size=900)).encode(), np.uint8).copy()
+            for m in range(members):
+                if m % 10 == 0:
+                    arr = base
+                else:
+                    arr = base.copy()
+                    mut = rng.random(len(arr)) < div
+                    arr[mut] = np.frombuffer("".join(
+                        rng.choice(lut, size=int(mut.sum()))).encode(),
+                        np.uint8)
+                f.write(">F%d_%d\n%s\n" % (fam, m, arr.tobytes().decode()))
+        for s in range(singletons):
+            f.write(">S%d\n%s\n"
+                    % (s, "".join(rng.choice(lut, size=900))))
+
+
+SCAN_SUFFIXES = ("", ".pair.num", ".total.acc.num", ".unmatched.fa")
+
+
+def same_outputs(a, b):
+    for suffix in SCAN_SUFFIXES:
+        pa, pb = a + suffix, b + suffix
+        if os.path.exists(pa) != os.path.exists(pb):
+            return suffix
+        if os.path.exists(pa):
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    return suffix
+    return None
+
+
+def phase_run(args, report, work):
+    import torch
+    from multiprime_tpu_torch.validate import scan as vscan
+    fa = os.path.join(work, "scale21k.fa")
+    t0 = time.time()
+    generate_corpus(fa, args.seed, args.families, args.members,
+                    args.singletons)
+    n_seqs = args.families * args.members + args.singletons
+    cut = (args.families, args.members, args.singletons) != (20, 1000, 1000)
+    say("phase 4 corpus: %d families x %d members + %d singletons = %d "
+        "sequences, 900 bp (%.1f s)%s" % (
+            args.families, args.members, args.singletons, n_seqs,
+            time.time() - t0, " [CUT from 20 x 1000 + 1000]" if cut else ""))
+    res = os.path.join(work, "res")
+    log_path = os.path.join(work, "run.log")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    nproc = os.cpu_count() or 1
+    cmd = [sys.executable, "-m", "multiprime_tpu_torch.cli.main", "run",
+           "-i", fa, "-r", res, "--device", DEVICE, "--pcr-products",
+           "summary", "--nproc", str(nproc)]
+    # the run is a process of its own: its kernel launch count starts at 0
+    # there and comes back in pipeline_metrics.json
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        rc = subprocess.run(cmd, cwd=HERE, env=env, stdout=log,
+                            stderr=subprocess.STDOUT).returncode
+    wall = time.time() - t0
+    if rc != 0:
+        with open(log_path) as log:
+            tail = log.read()[-4000:]
+        fail("run exited %d:\n%s" % (rc, tail))
+    with open(os.path.join(res, "pipeline_metrics.json")) as f:
+        metrics = json.load(f)
+    backends = metrics["backends"]
+    launches = int(backends.get("hit_codes_launches", 0))
+    say("phase 4 run: %.1f s wall, nproc=%d, scan_backend=%s, device=%s, "
+        "hit_codes launches=%d" % (wall, nproc, backends.get("scan_backend"),
+                                   backends.get("device_name"), launches))
+    say("phase 4 stages (s): " + json.dumps(metrics["timings_s"]))
+    if launches <= 0 or backends.get("scan_backend") != "device":
+        fail("run did not scan through the hit_codes kernel")
+    # rerun the rule-19 scan on the host backend: byte-identical outputs
+    core_fa = os.path.join(res, "Core_primers_set",
+                           "core_final_maxprimers_set.fa")
+    name = "core_final_maxprimers_set.out"
+    if not os.path.exists(core_fa):
+        core_fa = os.path.join(res, "Primers_set", "final_maxprimers_set.fa")
+        name = "final_maxprimers_set.out"
+    dev_out = os.path.join(res, "Core_primers_set", "BWT_coverage", name)
+    host_out = os.path.join(work, "host_bwt", name)
+    os.makedirs(os.path.dirname(host_out))
+    fmt_fa = os.path.join(res, "Total_fa", "scale21k.format.fa")
+    with open(os.path.join(res, "Total_fa", "scale21k.format.dict"),
+              "rb") as f:
+        targets_dict = pickle.load(f)
+    params = vscan.ScanParams(term_len=18, term=1, mm=1,
+                              product_size=(50, 2000), backend="numpy")
+    t0 = time.time()
+    vscan.run(core_fa, fmt_fa, host_out, params, targets_dict,
+              device=torch.device(DEVICE))
+    host_s = time.time() - t0
+    diff = same_outputs(dev_out, host_out)
+    if diff is not None:
+        fail("BWT_coverage %s%s differs between device and host scans"
+             % (name, diff))
+    with open(dev_out) as f:
+        rows = sum(1 for _ in f) - 1
+    say("phase 4 BWT_coverage/%s: device == host byte for byte (%d rows; "
+        "host rescan %.2f s, device scan stage %.2f s)"
+        % (name, rows, host_s, metrics["timings_s"].get("scan", -1)))
+    report["run"] = {"wall_s": wall, "nproc": nproc, "n_seqs": n_seqs,
+                     "cut": cut, "timings_s": metrics["timings_s"],
+                     "launches": launches, "bwt_rows": rows,
+                     "host_rescan_s": host_s}
+    # the kernel at the shape this run's rule-19 scan gave it: the first
+    # target batch of the formatted corpus against the core set's patterns
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    pats, _, keys, _ = vscan.expand_primer_fasta(core_fa, 18, None,
+                                                 with_keys=True)
+    p1h, s1h = pattern_onehots(ms, keys if keys is not None else pats, 1)
+    _, seqs = vscan.parse_fasta(fmt_fa)
+    longest = max(map(len, seqs))
+    pad_len = max(-longest % 512 + longest, 512)
+    bs = ms.safe_batch_size(2048, pad_len - p1h.shape[1] + 1, p1h.shape[0])
+    masks, _ = ms.encode_target_masks(seqs[:bs], length=pad_len)
+    report["hit_codes_run_shape"] = measure_kernel(
+        ms, masks, p1h, s1h, 1, 1, "phase 4 kernel at the run's shape")
+    return res, launches
+
+
+def phase_scan(args, report, work, res):
+    import torch
+    from multiprime_tpu_torch.cli import main as cli
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.validate import scan as vscan
+    dev = torch.device(DEVICE)
+    # the candidate sets of the multi-member clusters (file names end in
+    # _<members>.candidate.primers.fa); each singleton cluster adds some
+    # hundreds of primers of its own single sequence, about 2e5 in all at
+    # full size, which is no primer panel a user validates
+    primers = os.path.join(work, "candidates.fa")
+    n_files = 0
+    with open(primers, "w") as out:
+        for path in sorted(glob.glob(os.path.join(
+                res, "Primers_set", "candidate_primers_sets",
+                "*.candidate.primers.fa"))):
+            members = int(os.path.basename(path).split(".")[0]
+                          .rsplit("_", 1)[1])
+            if members > 1:
+                n_files += 1
+                with open(path) as f:
+                    out.write(f.read())
+    with open(primers) as f:
+        n_primers = sum(1 for line in f if line.startswith(">"))
+    if n_primers == 0:
+        fail("no candidate primers in the run's multi-member clusters")
+    fmt_fa = os.path.join(res, "Total_fa", "scale21k.format.fa")
+    ids, seqs = vscan.parse_fasta(fmt_fa)
+    flags = ["-i", primers, "-r", fmt_fa, "-l", "18", "-t", "1", "-m", "1",
+             "-s", "50,2000"]
+    outs, walls, peaks = {}, {}, {}
+    for backend in ("device", "numpy"):
+        outs[backend] = os.path.join(work, "scan_" + backend, "cov.out")
+        os.makedirs(os.path.dirname(outs[backend]))
+        ms.HIT_CODES_LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rc = cli.main(["scan", *flags, "-o", outs[backend], "--backend",
+                       backend, "--device", DEVICE])
+        torch.cuda.synchronize()
+        walls[backend] = time.time() - t0
+        peaks[backend] = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            fail("scan --backend %s exited %d" % (backend, rc))
+        if backend == "device" and ms.HIT_CODES_LAUNCHES <= 0:
+            fail("scan did not launch the hit_codes kernel")
+        launches = ms.HIT_CODES_LAUNCHES if backend == "device" else 0
+        say("phase 5 scan --backend %s: %.2f s wall, peak device memory "
+            "%.1f MiB, hit_codes launches %d" % (
+                backend, walls[backend], peaks[backend] / 2 ** 20,
+                launches))
+    diff = same_outputs(outs["device"], outs["numpy"])
+    if diff is not None:
+        fail("scan outputs differ between device and host: cov.out" + diff)
+    say("phase 5 scan: %d candidate primers of %d clusters x %d targets, "
+        "device == host byte for byte"
+        % (n_primers, n_files, len(ids)))
+    # -m 4 on 4200 targets, device only; held to the plain version
+    sub = os.path.join(work, "targets4200.fa")
+    with open(sub, "w") as f:
+        for i, s in zip(ids[:4200], seqs[:4200]):
+            f.write(">%s\n%s\n" % (i, s))
+    out4 = os.path.join(work, "scan_mm4", "cov.out")
+    os.makedirs(os.path.dirname(out4))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rc = cli.main(["scan", "-i", primers, "-r", sub, "-l", "18", "-t", "1",
+                   "-m", "4", "-s", "50,2000", "-o", out4, "--device",
+                   DEVICE])
+    torch.cuda.synchronize()
+    wall4 = time.time() - t0
+    peak4 = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail("scan -m 4 exited %d" % rc)
+    pats, _, keys, _ = vscan.expand_primer_fasta(primers, 18, None,
+                                                 with_keys=True)
+    if keys is not None:
+        pats = keys
+    p1h, s1h = pattern_onehots(ms, pats, 1)
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    seqs = seqs[:4200]
+    pad_len = max(-max(map(len, seqs)) % 512 + max(map(len, seqs)), 512)
+    bs = ms.safe_batch_size(2048, pad_len - 18 + 1, p1h.shape[0])
+    total = 0
+    for lo in range(0, len(seqs), bs):
+        masks, lens = ms.encode_target_masks(seqs[lo:lo + bs], pad_len)
+        tm = torch.from_numpy(masks).to(dev)
+        tl = torch.from_numpy(lens).to(dev)
+        got = ms.find_hits(tm, tl, planes, sfx, plen=18, mm=4, term=1,
+                           max_hits=1 << 20)
+        want = ms.find_hits_from_codes(
+            ms.hit_codes_reference(tm, planes, sfx, plen=18, mm=4, term=1),
+            tl, plen=18, max_hits=1 << 20)
+        if int(got[1]) > 1 << 20 or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            fail("-m 4 find_hits differs from the plain version at rows "
+                 "%d..%d" % (lo, lo + bs))
+        total += int(got[1])
+    say("phase 5 scan -m 4: %d patterns x 4200 targets in %.2f s wall, "
+        "peak device memory %.1f MiB; find_hits == plain version (%d hits "
+        "forward)" % (len(pats), wall4, peak4 / 2 ** 20, total))
+    report["scan"] = {"n_primers": n_primers, "wall_s": walls,
+                      "peak_bytes": peaks, "mm4_wall_s": wall4,
+                      "mm4_peak_bytes": peak4, "mm4_patterns": len(pats),
+                      "mm4_hits_forward": total}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--families", type=int, default=20)
+    ap.add_argument("--members", type=int, default=1000)
+    ap.add_argument("--singletons", type=int, default=1000)
+    ap.add_argument("--report", help="also write the measurements as JSON")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a GPU")
+    if not os.path.isdir(os.path.join(HERE, "multiprime_tpu_torch")):
+        fail("multiprime_tpu_torch/ is not beside chip_smoke.py: run it from "
+             "the root of a checkout")
+    sys.path.insert(0, HERE)
+    import multiprime_tpu_torch
+    if not os.path.abspath(multiprime_tpu_torch.__file__).startswith(HERE):
+        fail("imported multiprime_tpu_torch from outside this checkout")
+    say("torch %s, CUDA %s, python %s" % (
+        torch.__version__, torch.version.cuda, sys.version.split()[0]))
+    report = {}
+    t_start = time.time()
+    phase_build(args, report)
+    phase_kernel(args, report)
+    phase_find_hits(args, report)
+    work = tempfile.mkdtemp(prefix="mptpu_smoke_")
+    try:
+        res, launches = phase_run(args, report, work)
+        phase_scan(args, report, work, res)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    hc = report["hit_codes"]
+    kernels = {"kernels": [{
+        "name": "hit_codes", "route": "cuda",
+        "source": "multiprime_tpu_torch/csrc/hit_codes.cu",
+        "replaces": "multiprime_tpu/ops/mismatch_scan.py:173",
+        "launches": launches, "max_abs_err": hc["max_abs_err"],
+        "ms": hc["ms"], "plain_ms": hc["plain_ms"],
+        "bound_ms": hc["bound_ms"], "bound_by": hc["bound_by"],
+        "library_ms": hc["library_ms"], "matches_plain": True}]}
+    report["kernels"] = kernels
+    report["total_s"] = time.time() - t_start
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
+                    exist_ok=True)
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    say("total %.1f s" % report["total_s"])
+    say(report["card"])
+    say(json.dumps(kernels))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,109 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
+compiled by ``nvcc`` into ``_build/lib<name>.so`` at first use (rebuilt when
+the source is newer), then loaded with ``ctypes``: no PyTorch headers, so a
+build takes seconds.  A failed build raises with the compiler's stderr.
+Nothing here runs at import time, so the CPU tests import the package
+without a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# per kernel source: the compiler's output (the ptxas register and
+# shared-memory report), for the on-card smoke check
+BUILD_LOG = {}
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the CUDA "
+                       "kernels in %s cannot be built" % SRC_DIR)
+
+
+def _paths(name):
+    return (os.path.join(SRC_DIR, name + ".cu"),
+            os.path.join(BUILD_DIR, "lib%s.so" % name))
+
+
+def _stale(name):
+    src, so = _paths(name)
+    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+
+
+def build(names=None, force=False):
+    """Compile the given kernel sources (default: every ``csrc/*.cu``) that
+    are missing or stale (all of them with ``force``), one ``nvcc`` each,
+    all started together."""
+    if names is None:
+        names = sorted(f[:-3] for f in os.listdir(SRC_DIR) if f.endswith(".cu"))
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        src, so = _paths(name)
+        tmp = "%s.tmp.%d" % (so, os.getpid())
+        procs[name] = (tmp, so, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, so, proc) in procs.items():
+        out, err = proc.communicate()
+        BUILD_LOG[name] = out + err
+        if proc.returncode != 0:
+            failed.append("nvcc failed on %s.cu (exit %d):\n%s"
+                          % (name, proc.returncode, out + err))
+        else:
+            # rename into place: dlopen dedups by inode, a reload must see
+            # the new file
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _bind_hit_codes(lib):
+    ptr = ctypes.c_void_p          # pointers and the stream: never 32-bit
+    lib.hit_codes_launch.restype = ctypes.c_int
+    lib.hit_codes_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+    lib.hit_codes_error_string.restype = ctypes.c_char_p
+    lib.hit_codes_error_string.argtypes = [ctypes.c_int]
+
+
+_BINDERS = {"hit_codes": _bind_hit_codes}
+
+
+def load(name):
+    """The bound ctypes handle of ``lib<name>.so``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(_paths(name)[1])
+            _BINDERS[name](lib)
+            _libs[name] = lib
+        return lib

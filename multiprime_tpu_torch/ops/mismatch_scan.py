@@ -1,0 +1,356 @@
+"""Mismatch-tolerant primer-vs-target scan on PyTorch: the port's hot kernel.
+
+PyTorch port of multiprime_tpu/ops/mismatch_scan.py.  A window of a target
+is a hit for a pattern when
+
+    total mismatches <= mm   AND   suffix matches >= term
+
+where the suffix is the pattern's 3'-terminal ``term`` positions (the
+reference's MD-tag trailing-run filter).  Hits come back as int8 codes
+(0 = miss, mismatches + 1 = hit) and then as sparse flat indices.
+
+* NumPy host helpers (encoders, decoders, ``find_hits_numpy``) are copies
+  of the JAX module's.
+* ``hit_codes`` launches the hand-written CUDA kernel
+  ``csrc/hit_codes.cu`` for CUDA tensors; for CPU tensors it runs its plain
+  PyTorch version ``hit_codes_reference`` (the conv formulation of the JAX
+  package's ``hit_codes_conv``).
+* ``find_hits`` / ``find_hits_packed`` / ``find_hits_batched`` are the
+  window-length mask and the sparse compaction around it, in torch ops.
+
+Patterns reach the kernel packed as bit-planes (``pack_patterns``): int64
+[P, 4], bit k of plane b set iff the pattern admits base b at position k
+(plen <= 63 keeps bit 63 clear, so the int64 bits equal the kernel's
+uint64 planes).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils import iupac
+
+# launches of the CUDA hit-code kernel in this process (never the plain
+# version): a run reads it to show that its scan went through the kernel
+HIT_CODES_LAUNCHES = 0
+
+# the combined-weight trick of hit_codes_conv: score = counts + W * suffix
+_W = 64
+MAX_PLEN = 63
+
+
+def encode_targets(seqs, length=None):
+    """List of ACGT/N strings -> (one-hot uint8 [N, L, 4], lengths [N])."""
+    if length is None:
+        length = max((len(s) for s in seqs), default=0)
+    n = len(seqs)
+    chars = np.zeros((n, length), dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int32)
+    for i, s in enumerate(seqs):
+        b = np.frombuffer(s.encode("ascii"), np.uint8)[:length]
+        chars[i, :len(b)] = b
+        lengths[i] = len(b)
+    masks = iupac.bytes_to_masks(chars)
+    onehot = ((masks[..., None] >> np.arange(4)[None, None, :]) & 1)
+    # Ambiguity codes in targets match nothing (bowtie-like): zero them out.
+    pure = np.isin(masks, [1, 2, 4, 8])
+    onehot = onehot * pure[..., None]
+    return onehot.astype(np.uint8), lengths
+
+
+def encode_target_masks(seqs, length=None):
+    """List of strings -> (IUPAC 4-bit masks uint8 [N, L], lengths [N]):
+    the compact upload format, 1/4 the bytes of the one-hot encoding."""
+    if length is None:
+        length = max((len(s) for s in seqs), default=0)
+    n = len(seqs)
+    chars = np.zeros((n, length), dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int32)
+    for i, s in enumerate(seqs):
+        b = np.frombuffer(s.encode("ascii"), np.uint8)[:length]
+        chars[i, :len(b)] = b
+        lengths[i] = len(b)
+    return iupac.bytes_to_masks(chars), lengths
+
+
+def encode_target_codes(seqs, length=None):
+    """List of strings -> (STRICT 4-bit codes uint8 [N, L], lengths [N]):
+    pure bases keep their bit, ambiguity codes/gaps/padding become 0 (match
+    nothing) — the mask-scan form of encode_targets' purity zeroing."""
+    masks, lengths = encode_target_masks(seqs, length)
+    pure = np.isin(masks, [1, 2, 4, 8])
+    return np.where(pure, masks, 0).astype(np.uint8), lengths
+
+
+def encode_pattern_masks(patterns):
+    """List of (possibly degenerate) equal-length patterns -> uint8
+    [P, plen] IUPAC member masks; unknown characters map to 0 = always a
+    mismatch, like encode_primers' zero one-hot rows."""
+    arr = np.stack([
+        np.frombuffer(p.encode("ascii"), np.uint8) for p in patterns])
+    return iupac.bytes_to_masks(arr)
+
+
+def encode_primers(primers):
+    """List of equal-length primers -> one-hot uint8 [P, l, 4] (a
+    degenerate position sets every member base)."""
+    arr = np.stack([
+        np.frombuffer(p.encode("ascii"), np.uint8) for p in primers])
+    masks = iupac.bytes_to_masks(arr)
+    onehot = ((masks[..., None] >> np.arange(4)[None, None, :]) & 1)
+    return onehot.astype(np.uint8)
+
+
+def expand_masks(masks):
+    """uint8 [N, L] IUPAC masks (tensor) -> one-hot uint8 [N, L, 4];
+    ambiguity codes in targets match nothing (bowtie-like), same semantics
+    as encode_targets."""
+    m = masks.to(torch.int64)
+    onehot = (m[..., None] >> torch.arange(4, device=m.device)) & 1
+    pure = (m > 0) & (m < 16) & ((m & (m - 1)) == 0)
+    return torch.where(pure[..., None], onehot, 0).to(torch.uint8)
+
+
+def pack_patterns(primers_1h, suffix_1h, device="cpu"):
+    """Pattern one-hots [P, plen, 4] (NumPy, the JAX package's layout) and
+    their 3'-suffix one-hots -> (planes, suffix_planes), int64 [P, 4] on
+    ``device``: bit k of plane b is one-hot [p, k, b]."""
+    p1h = np.asarray(primers_1h)
+    s1h = np.asarray(suffix_1h)
+    plen = p1h.shape[1]
+    if plen > MAX_PLEN:
+        raise ValueError("pattern length %d exceeds %d" % (plen, MAX_PLEN))
+    weights = np.left_shift(np.int64(1), np.arange(plen, dtype=np.int64))
+
+    def planes(oh):
+        bits = (oh != 0).astype(np.int64)                # [P, plen, 4]
+        return np.einsum("pkb,k->pb", bits, weights)      # exact int64
+
+    return (torch.from_numpy(planes(p1h)).to(device),
+            torch.from_numpy(planes(s1h)).to(device))
+
+
+def _unpack_planes(planes, plen):
+    """int64 [P, 4] bit-planes -> one-hot float32 [P, 4, plen]."""
+    bits = torch.arange(plen, device=planes.device)
+    return ((planes[:, :, None] >> bits) & 1).to(torch.float32)
+
+
+def hit_codes_reference(target_masks, planes, suffix_planes, *, plen, mm,
+                        term):
+    """Plain PyTorch version of the hit-code kernel: one float32 conv1d over
+    the combined weight ``primers + 64 * suffix`` and its threshold, as in
+    the JAX package's hit_codes_conv.  Scores are integers below 2**12, so
+    float32 is exact; TF32 is switched off, as it would round them."""
+    if not (plen < _W and mm < _W):
+        raise ValueError("hit_codes_reference: plen and mm must be below "
+                         "%d, got %d and %d" % (_W, plen, mm))
+    n, length = target_masks.shape
+    n_out = length - plen + 1
+    if n_out <= 0:
+        return torch.zeros((n, 0, planes.shape[0]), dtype=torch.int8,
+                           device=target_masks.device)
+    x = expand_masks(target_masks).permute(0, 2, 1).to(torch.float32)
+    weight = (_unpack_planes(planes, plen)
+              + _W * _unpack_planes(suffix_planes, plen))     # [P, 4, plen]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        score = F.conv1d(x, weight)                           # [N, P, O]
+    thresh = _W * term + plen - mm
+    mism = plen - (score - _W * term)
+    codes = torch.where(score >= thresh, mism + 1, 0).to(torch.int8)
+    return codes.permute(0, 2, 1).contiguous()                # [N, O, P]
+
+
+def hit_codes(target_masks, planes, suffix_planes, *, plen, mm, term):
+    """int8 hit codes [N, O = L - plen + 1, P] (0 = no hit, mismatches + 1
+    = hit under the mm/term rule) for uint8 [N, L] target masks and int64
+    [P, 4] pattern planes.
+
+    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take the
+    plain version."""
+    global HIT_CODES_LAUNCHES
+    dev = target_masks.device
+    if dev.type == "cpu":
+        return hit_codes_reference(target_masks, planes, suffix_planes,
+                                   plen=plen, mm=mm, term=term)
+    if dev.type != "cuda":
+        raise ValueError("hit_codes: unsupported device %s" % dev)
+    for name, t, dtype, ndim in (("target_masks", target_masks, torch.uint8, 2),
+                                 ("planes", planes, torch.int64, 2),
+                                 ("suffix_planes", suffix_planes,
+                                  torch.int64, 2)):
+        if t.device != dev or t.dtype != dtype or t.dim() != ndim \
+                or not t.is_contiguous():
+            raise ValueError(
+                "hit_codes: %s must be a contiguous %dD %s tensor on %s, "
+                "got %s %s on %s" % (name, ndim, dtype, dev, t.dtype,
+                                     tuple(t.shape), t.device))
+    p = planes.shape[0]
+    if planes.shape[1] != 4 or tuple(suffix_planes.shape) != (p, 4):
+        raise ValueError("hit_codes: planes and suffix_planes must be "
+                         "[P, 4], got %s and %s"
+                         % (tuple(planes.shape), tuple(suffix_planes.shape)))
+    if not 1 <= plen <= MAX_PLEN:
+        raise ValueError("hit_codes: plen must be in 1..%d, got %d"
+                         % (MAX_PLEN, plen))
+    n, length = target_masks.shape
+    codes = torch.empty((n, max(length - plen + 1, 0), p), dtype=torch.int8,
+                        device=dev)
+    if codes.numel() == 0:
+        return codes
+    from . import _cuda
+    lib = _cuda.load("hit_codes")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hit_codes_launch(
+            target_masks.data_ptr(), planes.data_ptr(),
+            suffix_planes.data_ptr(), codes.data_ptr(), n, length, p,
+            int(plen), int(mm), int(term), stream)
+    if rc != 0:
+        raise RuntimeError("hit_codes kernel launch failed: %s (%d)"
+                           % (lib.hit_codes_error_string(rc).decode(), rc))
+    HIT_CODES_LAUNCHES += 1
+    return codes
+
+
+def find_hits_from_codes(codes, lengths, *, plen, max_hits):
+    """Window-length mask + sparse compaction of hit codes [N, O, P]
+    -> (hit_idx [max_hits] int64, n_hits (0-d int64), mismatches
+    [max_hits] int64).
+
+    hit_idx holds the ascending flat indices n * (O * P) + o * P + p of the
+    first max_hits hits, -1 padding; n_hits counts all of them.  Stays on
+    the codes' device with no host sync.  Masks ``codes`` in place."""
+    n_out = codes.shape[1]
+    o_idx = torch.arange(n_out, device=codes.device)
+    outside = (o_idx[None, :] + plen) > lengths.to(codes.device)[:, None]
+    codes.masked_fill_(outside[:, :, None], 0)
+    flat = codes.reshape(-1)
+    if flat.numel() == 0:
+        none = torch.full((max_hits,), -1, dtype=torch.int64,
+                          device=codes.device)
+        return none, torch.zeros((), dtype=torch.int64,
+                                 device=codes.device), none.clone()
+    hit = flat > 0
+    n_hits = hit.sum()
+    idx = torch.nonzero_static(hit, size=max_hits, fill_value=-1)[:, 0]
+    mism = torch.where(idx >= 0, flat[idx.clamp(min=0)].to(torch.int64) - 1,
+                       -1)
+    return idx, n_hits, mism
+
+
+def find_hits(target_masks, lengths, planes, suffix_planes, *, plen, mm=1,
+              term=4, max_hits=1 << 18):
+    """Sparse scan of uint8 [N, L] target masks: -> (hit_idx [max_hits],
+    n_hits, mismatches [max_hits]), the contract of the JAX package's
+    find_hits (flat index n * O * P + o * P + p, ascending, -1 padding, the
+    first max_hits hits), in int64."""
+    codes = hit_codes(target_masks, planes, suffix_planes, plen=plen, mm=mm,
+                      term=term)
+    return find_hits_from_codes(codes, lengths, plen=plen, max_hits=max_hits)
+
+
+def find_hits_packed(target_masks, lengths, planes, suffix_planes, *, plen,
+                     mm=1, term=4, max_hits=1 << 18, want_mism=True):
+    """find_hits packed into one int64 vector so the caller pays a single
+    device->host copy: out[0] = n_hits, out[1:max_hits+1] = flat hit
+    indices (-1 padding), out[max_hits+1:] = mismatch counts."""
+    idx, n_hits, mism = find_hits(target_masks, lengths, planes,
+                                  suffix_planes, plen=plen, mm=mm, term=term,
+                                  max_hits=max_hits)
+    parts = [n_hits.reshape(1), idx]
+    if want_mism:
+        parts.append(mism)
+    return torch.cat(parts)
+
+
+def find_hits_batched(target_masks, lengths, planes, suffix_planes, *, plen,
+                      mm=1, term=4, max_hits=1 << 17, want_mism=False):
+    """The whole corpus, pre-batched as uint8 mask rows [B, bs, L] with
+    lengths [B, bs], in one loop on the device -> packed hit blocks
+    [B, 1 + max_hits (+ max_hits)] int64, still on the device: the caller's
+    copy to the host is the one sync of the scan."""
+    return torch.stack([
+        find_hits_packed(target_masks[b], lengths[b], planes, suffix_planes,
+                         plen=plen, mm=mm, term=term, max_hits=max_hits,
+                         want_mism=want_mism)
+        for b in range(target_masks.shape[0])])
+
+
+def safe_batch_size(requested, n_out, p, mem_bytes=3 << 30):
+    """Largest batch <= requested keeping (a) the flat index space under
+    2**31 and (b) one [N, n_out, p] 4-byte tensor under ``mem_bytes`` —
+    the JAX package's batching, kept so both scan the same batches."""
+    cap = max(1, ((1 << 31) - 1) // max(n_out * p, 1))
+    mem_cap = max(1, int(mem_bytes) // max(4 * n_out * p, 1))
+    return max(1, min(requested, cap, mem_cap))
+
+
+def decode_packed(packed, n_out, p, max_hits):
+    """Host-side decode of find_hits_packed output (with or without the
+    mismatch block)."""
+    packed = np.asarray(packed)
+    n_hits = int(packed[0])
+    idx = packed[1:max_hits + 1].astype(np.int64)
+    has_mism = len(packed) > max_hits + 1
+    mism_blk = packed[max_hits + 1:] if has_mism else None
+    keep = idx >= 0
+    idx = idx[keep]
+    mism = mism_blk[keep] if has_mism else np.zeros(len(idx), np.int32)
+    seq = idx // (n_out * p)
+    rem = idx % (n_out * p)
+    return seq, rem // p, rem % p, mism.astype(np.int32), n_hits
+
+
+def find_hits_numpy(targets_1h, lengths, primers_1h, suffix_1h, *, mm=1,
+                    term=4):
+    """Pure NumPy scan for small workloads (identical hits).  Correlation via
+    einsum over uint8 one-hots; avoids device compile latency when
+    N*O*P is tiny relative to the compile cost."""
+    n, length, _ = targets_1h.shape
+    p, plen, _ = primers_1h.shape
+    n_out = length - plen + 1
+    if n_out <= 0:
+        return np.empty((0, 4), np.int64)
+    # One sgemm over the f32 im2col: [chunk*O, 4*plen] x [4*plen, 2P]
+    # (primer and 3'-suffix weights side by side).  BLAS with K = 4*plen
+    # beats einsum's two int32 [N, O, 4, plen] materialisations ~8x; match
+    # counts are small ints, exact in f32.  Rows are chunked to bound the
+    # im2col + accumulator working set.
+    weights = np.concatenate([primers_1h, suffix_1h], axis=0).reshape(
+        2 * p, plen * 4).astype(np.float32).T       # [4*plen, 2P]
+    per_row = n_out * (4 * plen * 4 + 8 * p)        # bytes per target row
+    chunk = max(1, min(n, (512 << 20) // max(per_row, 1)))
+    out = []
+    o_idx = np.arange(n_out)[None, :, None]
+    for base in range(0, n, chunk):
+        tc = targets_1h[base:base + chunk]
+        win = np.lib.stride_tricks.sliding_window_view(
+            tc, plen, axis=1)                       # [C, O, 4, plen]
+        col = np.ascontiguousarray(
+            win.transpose(0, 1, 3, 2), dtype=np.float32).reshape(
+                -1, plen * 4)
+        acc = (col @ weights).reshape(len(tc), n_out, 2 * p)
+        counts = acc[:, :, :p].astype(np.int32)
+        suffix = acc[:, :, p:].astype(np.int32)
+        mism = plen - counts
+        ok = (mism <= mm) & (suffix >= term)
+        ok &= (o_idx + plen) <= lengths[base:base + chunk, None, None]
+        s, o, pi = np.nonzero(ok)
+        out.append(np.stack([s + base, o, pi, mism[s, o, pi]], axis=1))
+    if not out:
+        return np.empty((0, 4), np.int64)
+    return out[0] if len(out) == 1 else np.concatenate(out, axis=0)
+
+
+def decode_hits(idx, mism, n_out, p):
+    """Host-side: flat indices -> (seq, window, primer, mismatches) arrays."""
+    idx = np.asarray(idx)
+    keep = idx >= 0
+    idx = idx[keep]
+    mism = np.asarray(mism)[keep]
+    seq = idx // (n_out * p)
+    rem = idx % (n_out * p)
+    return seq, rem // p, rem % p, mism.astype(np.int32)

@@ -1,0 +1,157 @@
+"""The PyTorch port stands alone: it loads neither JAX nor the JAX package,
+asks for the GPU unless told otherwise, and refuses the paths it has not
+ported yet instead of running something else."""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from multiprime_tpu_torch.align import centerstar, refine
+from multiprime_tpu_torch.cli import main as tcli
+from multiprime_tpu_torch.models import mcdpd
+from multiprime_tpu_torch.pipeline import driver as tdriver
+from multiprime_tpu_torch.utils import link as tlink
+from multiprime_tpu_torch.validate import scan as tscan
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "multiprime_tpu_torch"
+
+
+def _forbidden(name):
+    return (name in ("jax", "jaxlib", "multiprime_tpu")
+            or name.startswith(("jax.", "jaxlib.", "multiprime_tpu.")))
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax(path):
+    """AST scan: no import of jax, jaxlib or multiprime_tpu, and no module
+    name of theirs in a string (sys.modules lookups, importlib)."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            names = [node.value] if _forbidden(node.value) else []
+        else:
+            continue
+        for name in names:
+            assert not _forbidden(name), "%s:%d imports %s" % (
+                path.relative_to(ROOT), node.lineno, name)
+
+
+_SUBPROCESS = r"""
+import json, os, sys
+import numpy as np
+root = sys.argv[1]
+rng = np.random.default_rng(41)
+lut = np.array(list("ACGT"))
+bases = ["".join(rng.choice(lut, size=480)) for _ in range(3)]
+fa = os.path.join(root, "three.fa")
+with open(fa, "w") as f:
+    for b, base in enumerate(bases):
+        for i in range(8):
+            s = list(base)
+            for _ in range(6):
+                s[rng.integers(0, len(s))] = str(rng.choice(lut))
+            f.write(">%c%d\n%s\n" % (65 + b, i, "".join(s)))
+from multiprime_tpu_torch.pipeline.driver import run_pipeline
+import multiprime_tpu_torch.cli.main
+import multiprime_tpu_torch.ops._cuda
+pipe, _ = run_pipeline(None, input_fa=fa, results_dir=os.path.join(root, "r"),
+                       virus_name="three", coverage=0.5, min_seq_length=100,
+                       product_size=(100, 400), algo="v20", device="cpu")
+print(json.dumps({"modules": sorted(sys.modules),
+                  "backends": pipe._backends()}))
+"""
+
+
+def test_port_run_loads_no_jax(tmp_path):
+    """In a fresh interpreter, the port's whole `run` on the CPU leaves
+    neither jax nor any multiprime_tpu module in sys.modules."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _SUBPROCESS, str(tmp_path)], env=env,
+        cwd=str(tmp_path), capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in got["modules"] if _forbidden(m)] == []
+    assert "multiprime_tpu_torch.validate.scan" in got["modules"]
+    assert got["backends"]["scan_backend"] == "device"
+    assert (tmp_path / "r" / "Core_primers_set" / "BWT_coverage").is_dir()
+
+
+# ---------------------------------------------------------------------------
+# (h) the GPU is the default: asking for it without one raises
+# ---------------------------------------------------------------------------
+
+def _needs_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: device='cuda' does not raise")
+
+
+def test_cuda_without_gpu_raises(tmp_path):
+    _needs_no_gpu()
+    with pytest.raises(RuntimeError, match="is_available"):
+        tlink.resolve_device("cuda")
+    assert tlink.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tlink.resolve_device("meta")
+    with pytest.raises(RuntimeError, match="is_available"):
+        tscan.scan_hits(["ACGT" * 10], ["ACGTACGT"], tscan.ScanParams())
+    prim = tmp_path / "p.fa"
+    prim.write_text(">p\nACGTACGT\n")
+    ref = tmp_path / "r.fa"
+    ref.write_text(">r\n" + "ACGT" * 10 + "\n")
+    with pytest.raises(RuntimeError, match="is_available"):
+        tscan.run(str(prim), str(ref), str(tmp_path / "o.out"),
+                  tscan.ScanParams())
+    with pytest.raises(RuntimeError, match="is_available"):
+        tdriver.run_pipeline(None, input_fa=str(ref),
+                             results_dir=str(tmp_path / "res"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        tcli.main(["scan", "-i", str(prim), "-r", str(ref), "-o",
+                   str(tmp_path / "c.out")])
+    with pytest.raises(RuntimeError, match="is_available"):
+        tcli.main(["run", "-i", str(ref), "-r", str(tmp_path / "res2")])
+    assert not (tmp_path / "o.out").exists()
+
+
+@pytest.mark.parametrize("override", [
+    {"devices": 2}, {"align_backend": "progressive"},
+    {"design_backend": "wrc"}])
+def test_unported_pipeline_options_raise(tmp_path, override):
+    ref = tmp_path / "r.fa"
+    ref.write_text(">r\n" + "ACGT" * 100 + "\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdriver.run_pipeline(None, input_fa=str(ref), device="cpu",
+                             results_dir=str(tmp_path / "res"), **override)
+
+
+def test_unported_device_backends_raise():
+    with pytest.raises(NotImplementedError, match="Stage A"):
+        mcdpd.resolve_stage_a(100, 100, 18)
+    with pytest.raises(NotImplementedError, match="align/device.py"):
+        centerstar._use_device_backend("device", 10, 100)
+    assert centerstar._use_device_backend("auto", 10 ** 6, 10 ** 6) is False
+    with pytest.raises(NotImplementedError, match="align/device.py"):
+        refine._refine_pass_device([], None, None)
+
+
+def test_fork_safe_tracks_cuda(monkeypatch):
+    assert mcdpd.fork_safe() == (not torch.cuda.is_initialized())
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    assert mcdpd.fork_safe() is False
