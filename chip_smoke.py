@@ -22,7 +22,17 @@ the final line):
 5. `scan` through the CLI on the run's aggregated candidate set against
    the 21k targets, device vs host byte-identical; then -m 4 on 4200
    targets on the device, held to the plain version through find_hits;
-6. the kernels line.
+6. the match-count and bitmap kernels against their plain versions, exact,
+   on edge-case grids;
+7. find_hits_bitmap (the two-phase scan) on the 21k targets against phase
+   5's patterns, equal tuple for tuple to find_hits over the scan's
+   batches; the bitmap kernel timed at that shape beside its plain version
+   and a conv1d yardstick;
+8. dimer_hit_matrix_fused and dimer_hit_matrix on the unique candidate
+   primers (the first DIMER_PRIMERS of them), equal to each other and to
+   verify_against_host on a seeded sample; the match-count kernel timed at
+   the fused path's first bucket;
+9. the kernels line.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -45,7 +55,11 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core rate
+BF16_OPS_PER_S = 0.989e15      # H100 SXM dense bf16 tensor-core rate
 DEVICE = "cuda"
+# the dimer phase's cap on unique primers: 2,000 and 8,000 are the scales
+# at which the JAX package's ops/dimer.py was measured
+DIMER_PRIMERS = 8000
 
 
 def fail(msg):
@@ -185,6 +199,17 @@ def phase_kernel(args, report):
                                          "phase 2 main shape")
 
 
+def bound(n_bytes, ops, ops_per_s):
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the peak rate of their type."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
 def measure_kernel(ms, masks, p1h, s1h, mm, term, label):
     """Kernel vs plain version (exact) on one batch, then CUDA-event times
     of the kernel, the plain version and a conv1d yardstick, beside the
@@ -226,15 +251,11 @@ def measure_kernel(ms, masks, p1h, s1h, mm, term, label):
     in_bytes = n * length + 2 * planes.numel() * 8
     out_bytes = n * n_out * p_all
     ops = 2 * 2 * n * n_out * p_all * 4 * plen
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT8_OPS_PER_S * 1e3
     out = {"shape": {"N": n, "L": length, "O": n_out, "P": p_all,
                      "plen": plen, "mm": mm, "term": term},
            "hits": hits, "max_abs_err": max_err, "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": in_bytes + out_bytes, "ops": ops}
+           **bound(in_bytes + out_bytes, ops, INT8_OPS_PER_S)}
     say("%s N=%d L=%d O=%d P=%d plen=%d mm=%d term=%d: equal, %d hits; "
         "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s)"
         % (label, n, length, n_out, p_all, plen, mm, term, hits, kernel_ms,
@@ -532,6 +553,332 @@ def phase_scan(args, report, work, res):
                       "peak_bytes": peaks, "mm4_wall_s": wall4,
                       "mm4_peak_bytes": peak4, "mm4_patterns": len(pats),
                       "mm4_hits_forward": total}
+    return primers, pats
+
+
+def phase_new_kernels(args, report):
+    """The match-count and bitmap kernels against their plain versions on
+    edge-case grids: exact equality (float32 counts bit for bit, int8
+    bitmaps)."""
+    import torch
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(args.seed + 2)
+    cases = 0
+    # plen 5..32 as the ends are, lp up to 64 as the fused path pads them:
+    # random 4-bit masks (pure, ambiguous, multi-base, empty), one-hot
+    # patterns with zero left-padding columns, N and P off every tile
+    for plen in (5, 8, 13, 18, 24, 32, 40, 48, 57, 64):
+        for n_pat in (1, 7, 77, 257, 513):
+            n = int(rng.integers(1, 40))
+            length = int(rng.integers(plen, plen + 300))
+            masks = torch.from_numpy(rng.integers(
+                0, 16, size=(n, length)).astype(np.uint8)).to(dev)
+            p1h = rng.integers(0, 2, size=(n_pat, plen, 4)).astype(np.uint8)
+            for row in p1h:
+                row[:int(rng.integers(0, plen))] = 0
+            planes = ms.pattern_planes(p1h, device=dev)
+            got = ms.match_counts_kernel(masks, planes, plen=plen)
+            want = ms.match_counts_reference(masks, planes, plen=plen)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                fail("match_counts differs from the plain version at plen=%d"
+                     " N=%d L=%d P=%d" % (plen, n, length, n_pat))
+            cases += 1
+    say("phase 6 match_counts grid: %d cases equal (float32 bit for bit)"
+        % cases)
+    cases = 0
+    for plen in (8, 18, 20, 32, 63):
+        for mm in range(5):
+            for term in (0, 1, 4, plen + 1):
+                n = int(rng.integers(1, 40))
+                seqs = random_seqs(rng, n, max(1, plen - 3), 600,
+                                   letters="ACGTacgtNRY-")
+                # P across the 256-pattern tiles, some not a multiple of 8
+                n_pat = int(rng.choice([1, 7, 45, 300, 700]))
+                pats = planted_patterns(rng, seqs, n_pat, plen)
+                if rng.random() < 0.2:
+                    pats[0] = "N" * plen             # matches nothing
+                p1h, s1h = pattern_onehots(ms, pats, term)
+                if rng.random() < 0.5:
+                    p1h, s1h = p1h[:n_pat], s1h[:n_pat]
+                # the raw IUPAC masks: N, R and Y are several bases a
+                # position, each counted where the pattern shares it
+                masks, _ = ms.encode_target_masks(seqs)
+                tm = torch.from_numpy(masks).to(dev)
+                planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+                kw = dict(plen=plen, mm=mm, term=term)
+                got = ms.hit_window_bitmap_kernel(tm, planes, sfx, **kw)
+                want = ms.hit_window_bitmap_reference(tm, planes, sfx, **kw)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail("hit_window_bitmap differs from the plain version at "
+                         "plen=%d mm=%d term=%d N=%d L=%d P=%d"
+                         % (plen, mm, term, n, masks.shape[1],
+                            planes.shape[0]))
+                cases += 1
+    say("phase 6 hit_window_bitmap grid: %d cases equal (exact int8; "
+        "targets with several bases a position)" % cases)
+
+
+def phase_bitmap(args, report, res, pats):
+    """The two-phase scan at full size: find_hits_bitmap on the formatted
+    corpus against phase 5's patterns, held to find_hits over the scan's
+    batches; then the bitmap kernel timed at that shape."""
+    import torch
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.validate import scan as vscan
+    dev = torch.device(DEVICE)
+    plen, mm, term = 18, 1, 1
+    _, seqs = vscan.parse_fasta(os.path.join(res, "Total_fa",
+                                             "scale21k.format.fa"))
+    longest = max(map(len, seqs))
+    pad_len = max(-longest % 512 + longest, 512)
+    p1h, s1h = pattern_onehots(ms, pats, term)
+    t1h, lens = ms.encode_targets(seqs, length=pad_len)
+    # the path: one call, its launches counted from 0
+    ms.HIT_WINDOW_BITMAP_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = ms.find_hits_bitmap(t1h, lens, p1h, s1h, mm=mm, term=term,
+                              device=dev)
+    wall = time.time() - t0
+    launches = ms.HIT_WINDOW_BITMAP_LAUNCHES
+    if launches <= 0:
+        fail("find_hits_bitmap did not launch the hit_window_bitmap kernel")
+    del t1h
+    # find_hits (the hit-code kernel) over the batches of the scan
+    n_out, p_all = pad_len - plen + 1, p1h.shape[0]
+    # pure masks: the base sets find_hits_bitmap gives its kernel
+    masks, _ = ms.encode_target_codes(seqs, length=pad_len)
+    tm = torch.from_numpy(masks).to(dev)
+    tl = torch.from_numpy(lens).to(dev)
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    bs = ms.safe_batch_size(2048, n_out, p_all)
+    max_hits = 1 << 21
+    want = [[], [], [], []]
+    t0 = time.time()
+    for lo in range(0, len(seqs), bs):
+        idx, n_hits, mism = ms.find_hits(tm[lo:lo + bs], tl[lo:lo + bs],
+                                         planes, sfx, plen=plen, mm=mm,
+                                         term=term, max_hits=max_hits)
+        if int(n_hits) > max_hits:
+            fail("phase 7 find_hits batch overflowed its max_hits")
+        parts = ms.decode_hits(idx.cpu().numpy(), mism.cpu().numpy(), n_out,
+                               p_all)
+        for dst, part in zip(want, (parts[0] + lo,) + parts[1:]):
+            dst.append(part)
+    dense_wall = time.time() - t0
+    want = [np.concatenate(part) for part in want]
+    for name, g, w in zip(("seq", "window", "primer", "mism"), got, want):
+        if not np.array_equal(g, w):
+            fail("find_hits_bitmap %s differs from find_hits (%d vs %d hits)"
+                 % (name, len(got[0]), len(want[0])))
+    bm = ms.hit_window_bitmap(tm, tl, planes, sfx, plen=plen, mm=mm,
+                              term=term)
+    flagged = int(bm.sum())
+    say("phase 7 find_hits_bitmap: %d targets x %d patterns, %.2f s wall, "
+        "%d launch(es), %d flagged windows, %d hits == find_hits over %d "
+        "batches (%.2f s wall)" % (len(seqs), p_all, wall, launches, flagged,
+                                   len(got[0]), -(-len(seqs) // bs),
+                                   dense_wall))
+    report["bitmap_path"] = {"wall_s": wall, "launches": launches,
+                             "flagged_windows": flagged, "hits": len(got[0]),
+                             "find_hits_wall_s": dense_wall}
+    report["hit_window_bitmap"] = measure_bitmap(ms, tm, planes, sfx, plen,
+                                                 mm, term, bs)
+    report["hit_window_bitmap"]["launches"] = launches
+
+
+def measure_bitmap(ms, tm, planes, sfx, plen, mm, term, bs):
+    """The bitmap kernel on the whole corpus (pure masks) vs its plain
+    version (exact), then CUDA-event times of kernel, plain version and a
+    conv1d + threshold + amax yardstick (all over the scan's batches: one
+    [N, O, P] float32 tensor at full size would not fit), beside the bound.
+    The operations counted are those this data needs, from the plain hit
+    codes: every pattern for a window with no hit, up to the first hit for
+    the others."""
+    import torch
+    n, length = tm.shape
+    n_out, p_all = length - plen + 1, planes.shape[0]
+    kw = dict(plen=plen, mm=mm, term=term)
+    got = ms.hit_window_bitmap_kernel(tm, planes, sfx, **kw)
+    pairs, max_err = 0, 0
+    for lo in range(0, n, bs):
+        hits = ms.hit_codes_reference(tm[lo:lo + bs], planes, sfx, **kw) > 0
+        want = hits.any(dim=2)
+        first = hits.to(torch.uint8).argmax(dim=2)
+        pairs += int(torch.where(want, first + 1, p_all).sum())
+        del hits, want, first
+        want = ms.hit_window_bitmap_reference(tm[lo:lo + bs], planes, sfx,
+                                              **kw)
+        max_err = max(max_err, int((got[lo:lo + bs].int() - want.int())
+                                   .abs().max()))
+        del want
+    if max_err != 0:
+        fail("hit_window_bitmap differs from the plain version on the corpus "
+             "(max abs error %d)" % max_err)
+    kernel_ms = cuda_ms(lambda: ms.hit_window_bitmap_kernel(
+        tm, planes, sfx, **kw), 5)
+
+    def plain():
+        for lo in range(0, n, bs):
+            ms.hit_window_bitmap_reference(tm[lo:lo + bs], planes, sfx, **kw)
+    plain_ms = cuda_ms(plain, 1)
+    weight = (ms._unpack_planes(planes, plen)
+              + 64 * ms._unpack_planes(sfx, plen)).contiguous()
+    thresh = 64 * term + plen - mm
+
+    def library():
+        for lo in range(0, n, bs):
+            x = ms.expand_masks(tm[lo:lo + bs]).permute(0, 2, 1).to(
+                torch.float32)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                score = torch.nn.functional.conv1d(x, weight)
+            (score >= thresh).amax(dim=1).to(torch.int8)
+    library_ms = cuda_ms(library, 1)
+    # masks in, both plane sets, the bitmap out; operations: one int8
+    # product over the combined weight primers + 64 * suffix (values up to
+    # 65; on pure targets counts stay below 64, so the score decodes) for
+    # the pairs this data needs
+    out = {"shape": {"N": n, "L": length, "O": n_out, "P": p_all,
+                     "plen": plen, "mm": mm, "term": term},
+           "pairs_needed": pairs, "pairs_all": n * n_out * p_all,
+           "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           **bound(n * length + 2 * planes.numel() * 8 + n * n_out,
+                   2 * pairs * 4 * plen, INT8_OPS_PER_S)}
+    say("phase 7 bitmap kernel N=%d L=%d O=%d P=%d: equal; pairs needed "
+        "%d of %d; kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
+        "bound_ms=%.4f (%s)" % (n, length, n_out, p_all, pairs,
+                                out["pairs_all"], kernel_ms, plain_ms,
+                                library_ms, out["bound_ms"], out["bound_by"]))
+    return out
+
+
+def phase_dimer(args, report, primers_fa):
+    """The dimer matrix at full size on the unique candidate primers: the
+    fused and unfused device paths equal to each other and to the host
+    search on a seeded sample; then the match-count kernel timed at the
+    fused path's first bucket."""
+    import torch
+    from multiprime_tpu_torch.ops import dimer
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.validate import scan as vscan
+    dev = torch.device(DEVICE)
+    _, seqs = vscan.parse_fasta(primers_fa)
+    uniq = list(dict.fromkeys(seqs))
+    primers = uniq[:DIMER_PRIMERS]
+    cut = "" if len(primers) == len(uniq) else (
+        " [CUT from %d unique primers]" % len(uniq))
+    walls, launches = {}, {}
+    t_phase = time.time()
+    mats = {}
+    for fn in ("dimer_hit_matrix_fused", "dimer_hit_matrix"):
+        ms.MATCH_COUNTS_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mats[fn] = getattr(dimer, fn)(primers, device=dev)
+        torch.cuda.synchronize()
+        walls[fn] = time.time() - t0
+        launches[fn] = ms.MATCH_COUNTS_LAUNCHES
+        if launches[fn] <= 0:
+            fail("%s did not launch the match_counts kernel" % fn)
+    if not np.array_equal(mats["dimer_hit_matrix_fused"],
+                          mats["dimer_hit_matrix"]):
+        fail("dimer_hit_matrix_fused and dimer_hit_matrix differ")
+    hit = mats["dimer_hit_matrix_fused"]
+    rng = np.random.default_rng(args.seed + 3)
+    sample = np.sort(rng.choice(len(primers), size=min(120, len(primers)),
+                                replace=False))
+    t0 = time.time()
+    host = dimer.verify_against_host([primers[i] for i in sample])
+    host_s = time.time() - t0
+    if not np.array_equal(hit[np.ix_(sample, sample)], host):
+        fail("dimer matrix differs from verify_against_host on the sample")
+    lay = dimer.fused_layout(primers)
+    n_t, n_e = lay["masks"].shape[0], lay["p1h"].shape[0]
+    say("phase 8 dimer: P=%d primers%s, T=%d expanded targets, E=%d ends; "
+        "fused %.2f s (%d launches), unfused %.2f s (%d launches); equal, "
+        "%d dimer pairs; sample of %d == verify_against_host (%.2f s)"
+        % (len(primers), cut, n_t, n_e, walls["dimer_hit_matrix_fused"],
+           launches["dimer_hit_matrix_fused"], walls["dimer_hit_matrix"],
+           launches["dimer_hit_matrix"], int(hit.sum()), len(sample),
+           host_s))
+    report["dimer"] = {"P": len(primers), "unique": len(uniq), "T": n_t,
+                       "E": n_e, "wall_s": walls, "launches": launches,
+                       "pairs": int(hit.sum()), "sample": len(sample),
+                       "host_sample_s": host_s,
+                       "phase_s": time.time() - t_phase}
+    report["match_counts"] = measure_counts(ms, dimer, lay, dev)
+    report["match_counts"]["launches"] = sum(launches.values())
+
+
+def measure_counts(ms, dimer, lay, dev):
+    """The match-count kernel at the fused path's first bucket vs its plain
+    version (exact), then CUDA-event times of kernel, plain version, a
+    conv1d yardstick and the whole fused pass (kernel + torch epilogue),
+    beside the bound."""
+    import torch
+    lp, z = lay["lp"], lay["z"]
+    t_len = lay["masks"].shape[1]
+    tb = min(1024, ms.safe_batch_size(1024, t_len - lp + 1, 4096))
+    masks = torch.from_numpy(lay["masks"][:tb]).to(dev)
+    planes = ms.pattern_planes(lay["p1h"][:4096], device=dev)
+    n, p_all = masks.shape[0], planes.shape[0]
+    n_out = t_len - lp + 1
+    got = ms.match_counts_kernel(masks, planes, plen=lp)
+    want = ms.match_counts_reference(masks, planes, plen=lp)
+    torch.cuda.synchronize()
+    max_err = float((got - want).abs().max())
+    if max_err != 0:
+        fail("match_counts differs from the plain version at the fused "
+             "bucket")
+    del got, want
+    kernel_ms = cuda_ms(lambda: ms.match_counts_kernel(masks, planes,
+                                                       plen=lp), 20)
+    plain_ms = cuda_ms(lambda: ms.match_counts_reference(masks, planes,
+                                                         plen=lp), 3)
+    m = masks.to(torch.int64)
+    x = ((m[:, None, :] >> torch.arange(4, device=dev)[None, :, None])
+         & 1).to(torch.float32).contiguous()
+    weight = ms._unpack_planes(planes, lp).contiguous()
+
+    def library():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return torch.nn.functional.conv1d(x, weight)
+    library_ms = cuda_ms(library, 3)
+    e_sl = slice(0, p_all)
+    args = [torch.from_numpy(lay[k][e_sl]).to(dev).long()
+            for k in ("lns", "shifts")]
+    lens = torch.from_numpy(lay["lengths"][:tb]).to(dev).long()
+    trig = torch.from_numpy(lay["trig"][e_sl]).to(dev)
+    fused_ms = cuda_ms(lambda: dimer._fused_kernel(
+        masks, lens, planes, lp, z, *args, trig), 5)
+    # masks and planes in, float32 counts out; the bf16-matmul form's
+    # operations
+    out = {"shape": {"T": n, "L": t_len, "O": n_out, "E": p_all, "lp": lp},
+           "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "fused_pass_ms": fused_ms,
+           **bound(n * t_len + p_all * 32 + 4 * n * n_out * p_all,
+                   2 * n * n_out * p_all * 4 * lp, BF16_OPS_PER_S)}
+    say("phase 8 match_counts kernel T=%d L=%d O=%d E=%d lp=%d: equal; "
+        "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s); "
+        "whole fused pass (kernel + torch epilogue) %.4f ms"
+        % (n, t_len, n_out, p_all, lp, kernel_ms, plain_ms, library_ms,
+           out["bound_ms"], out["bound_by"], fused_ms))
+    return out
+
+
+def kernel_entry(m, name, source, replaces):
+    """One kernel's entry of the kernels line, from its measurements."""
+    return {"name": name, "route": "cuda",
+            "source": "multiprime_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": m["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "matches_plain": True}
 
 
 def main():
@@ -562,18 +909,22 @@ def main():
     work = tempfile.mkdtemp(prefix="mptpu_smoke_")
     try:
         res, launches = phase_run(args, report, work)
-        phase_scan(args, report, work, res)
+        primers, keys = phase_scan(args, report, work, res)
+        phase_new_kernels(args, report)
+        phase_bitmap(args, report, res, keys)
+        phase_dimer(args, report, primers)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    hc = report["hit_codes"]
-    kernels = {"kernels": [{
-        "name": "hit_codes", "route": "cuda",
-        "source": "multiprime_tpu_torch/csrc/hit_codes.cu",
-        "replaces": "multiprime_tpu/ops/mismatch_scan.py:173",
-        "launches": launches, "max_abs_err": hc["max_abs_err"],
-        "ms": hc["ms"], "plain_ms": hc["plain_ms"],
-        "bound_ms": hc["bound_ms"], "bound_by": hc["bound_by"],
-        "library_ms": hc["library_ms"], "matches_plain": True}]}
+    report["hit_codes"]["launches"] = launches
+    kernels = {"kernels": [
+        kernel_entry(report["hit_codes"], "hit_codes", "hit_codes.cu",
+                     "multiprime_tpu/ops/mismatch_scan.py:173"),
+        kernel_entry(report["match_counts"], "match_counts",
+                     "match_counts.cu",
+                     "multiprime_tpu/ops/mismatch_scan.py:150"),
+        kernel_entry(report["hit_window_bitmap"], "hit_window_bitmap",
+                     "hit_window_bitmap.cu",
+                     "multiprime_tpu/ops/mismatch_scan.py:315")]}
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
     if args.report:

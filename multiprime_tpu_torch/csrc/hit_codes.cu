@@ -36,6 +36,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "window_planes.cuh"
+
 namespace {
 
 constexpr int kTileO = 128;    // windows per block
@@ -58,27 +60,10 @@ hit_codes_kernel(const uint8_t* __restrict__ masks,      // [N, L] 4-bit IUPAC
   const int span = tile + plen - 1;
 
   const uint8_t* row = masks + n * L + o0;
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const uint8_t m = row[i];
-    // purity rule of expand_masks: exactly one base bit, else no match
-    base[i] = (m == 1 || m == 2 || m == 4 || m == 8) ? m : 0;
-  }
+  for (int i = threadIdx.x; i < span; i += blockDim.x) base[i] = pure_base(row[i]);
   __syncthreads();
 
-  for (int w = threadIdx.x; w < tile; w += blockDim.x) {
-    uint64_t b0 = 0, b1 = 0, b2 = 0, b3 = 0;
-    for (int k = 0; k < plen; ++k) {
-      const uint64_t c = base[w + k];
-      b0 |= (c & 1ull) << k;
-      b1 |= ((c >> 1) & 1ull) << k;
-      b2 |= ((c >> 2) & 1ull) << k;
-      b3 |= ((c >> 3) & 1ull) << k;
-    }
-    win[w][0] = b0;
-    win[w][1] = b1;
-    win[w][2] = b2;
-    win[w][3] = b3;
-  }
+  for (int w = threadIdx.x; w < tile; w += blockDim.x) window_planes(base + w, plen, win[w]);
   __syncthreads();
 
   int8_t* out = codes + (n * O + o0) * P;

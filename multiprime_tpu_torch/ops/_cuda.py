@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled by ``nvcc`` into ``_build/lib<name>.so`` at first use (rebuilt when
-the source is newer), then loaded with ``ctypes``: no PyTorch headers, so a
-build takes seconds.  A failed build raises with the compiler's stderr.
-Nothing here runs at import time, so the CPU tests import the package
-without a CUDA toolkit.
+the source or a shared ``csrc/*.cuh`` header is newer), then loaded with
+``ctypes``: no PyTorch headers, so a build takes seconds.  A failed build
+raises with the compiler's stderr.  Nothing here runs at import time, so
+the CPU tests import the package without a CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", SRC_DIR]
 
 # per kernel source: the compiler's output (the ptxas register and
 # shared-memory report), for the on-card smoke check
@@ -48,7 +49,11 @@ def _paths(name):
 
 def _stale(name):
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+               if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(map(os.path.getmtime, [src, *headers]))
 
 
 def build(names=None, force=False):
@@ -84,17 +89,32 @@ def build(names=None, force=False):
         raise RuntimeError("\n".join(failed))
 
 
-def _bind_hit_codes(lib):
-    ptr = ctypes.c_void_p          # pointers and the stream: never 32-bit
-    lib.hit_codes_launch.restype = ctypes.c_int
-    lib.hit_codes_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
-    lib.hit_codes_error_string.restype = ctypes.c_char_p
-    lib.hit_codes_error_string.argtypes = [ctypes.c_int]
+_PTR = ctypes.c_void_p             # pointers and the stream: never 32-bit
+_I64, _INT = ctypes.c_int64, ctypes.c_int
 
 
-_BINDERS = {"hit_codes": _bind_hit_codes}
+def _binder(*launch_args):
+    """Binder of a source whose ``<name>_launch`` takes ``launch_args`` and
+    returns a CUDA error code, with ``<name>_error_string`` beside it."""
+    def bind(lib, name):
+        launch = getattr(lib, name + "_launch")
+        launch.restype = ctypes.c_int
+        launch.argtypes = list(launch_args)
+        err = getattr(lib, name + "_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+    return bind
+
+
+# masks, planes, [suffix planes,] output, N, L, P, plen, [mm, term,]
+# stream
+_BINDERS = {
+    "hit_codes": _binder(_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT,
+                         _INT, _INT, _PTR),
+    "hit_window_bitmap": _binder(_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64,
+                                 _INT, _INT, _INT, _PTR),
+    "match_counts": _binder(_PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR),
+}
 
 
 def load(name):
@@ -104,6 +124,6 @@ def load(name):
         if lib is None:
             build([name])
             lib = ctypes.CDLL(_paths(name)[1])
-            _BINDERS[name](lib)
+            _BINDERS[name](lib, name)
             _libs[name] = lib
         return lib

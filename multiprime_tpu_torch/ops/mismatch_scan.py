@@ -17,11 +17,16 @@ reference's MD-tag trailing-run filter).  Hits come back as int8 codes
   package's ``hit_codes_conv``).
 * ``find_hits`` / ``find_hits_packed`` / ``find_hits_batched`` are the
   window-length mask and the sparse compaction around it, in torch ops.
+* ``match_counts`` (the JAX package's ``match_counts_conv`` /
+  ``match_counts_pallas``) launches ``csrc/match_counts.cu``: exact match
+  counts with no purity rule, the correlation under ``ops/dimer.py``.
+* ``hit_window_bitmap`` / ``find_hits_bitmap`` are the two-phase sparse
+  scan: an any-hit window bitmap from ``csrc/hit_window_bitmap.cu``, then
+  a host re-match of the flagged windows.
 
-Patterns reach the kernel packed as bit-planes (``pack_patterns``): int64
-[P, 4], bit k of plane b set iff the pattern admits base b at position k
-(plen <= 63 keeps bit 63 clear, so the int64 bits equal the kernel's
-uint64 planes).
+Patterns reach the kernels packed as bit-planes (``pattern_planes``,
+``pack_patterns``): int64 [P, 4], bit k of plane b set iff the pattern
+admits base b at position k; the int64 bits are the kernels' uint64 planes.
 """
 
 from __future__ import annotations
@@ -31,14 +36,18 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import iupac
+from ..utils import link as linkmod
 
-# launches of the CUDA hit-code kernel in this process (never the plain
-# version): a run reads it to show that its scan went through the kernel
+# launches of each CUDA kernel in this process (never of its plain
+# version): a run reads them to show that its path went through the kernels
 HIT_CODES_LAUNCHES = 0
+MATCH_COUNTS_LAUNCHES = 0
+HIT_WINDOW_BITMAP_LAUNCHES = 0
 
 # the combined-weight trick of hit_codes_conv: score = counts + W * suffix
 _W = 64
-MAX_PLEN = 63
+MAX_PLEN = 63          # hit codes and bitmap: below _W
+MAX_COUNT_PLEN = 64    # match counts: every bit of the 64-bit planes
 
 
 def encode_targets(seqs, length=None):
@@ -113,29 +122,66 @@ def expand_masks(masks):
     return torch.where(pure[..., None], onehot, 0).to(torch.uint8)
 
 
-def pack_patterns(primers_1h, suffix_1h, device="cpu"):
-    """Pattern one-hots [P, plen, 4] (NumPy, the JAX package's layout) and
-    their 3'-suffix one-hots -> (planes, suffix_planes), int64 [P, 4] on
-    ``device``: bit k of plane b is one-hot [p, k, b]."""
-    p1h = np.asarray(primers_1h)
-    s1h = np.asarray(suffix_1h)
-    plen = p1h.shape[1]
+def onehot_masks(onehot):
+    """One-hot [..., 4] (NumPy array or tensor) -> uint8 masks [...] on the
+    same device: bit b set iff onehot[..., b] != 0.  No purity rule: a
+    position with several bases keeps them all."""
+    oh = torch.as_tensor(onehot)
+    weights = torch.tensor([1, 2, 4, 8], dtype=torch.uint8, device=oh.device)
+    return ((oh != 0).to(torch.uint8) * weights).sum(-1, dtype=torch.uint8)
+
+
+def pattern_planes(patterns_1h, *, device):
+    """Pattern one-hots [P, plen <= 64, 4] (NumPy, the JAX package's layout)
+    -> int64 [P, 4] bit-planes on ``device``: bit k of plane b is set iff
+    one-hot [p, k, b] != 0 (bit 63 is the int64 sign bit)."""
+    oh = np.asarray(patterns_1h)
+    plen = oh.shape[1]
+    if plen > MAX_COUNT_PLEN:
+        raise ValueError("pattern length %d exceeds %d" % (plen,
+                                                           MAX_COUNT_PLEN))
+    weights = np.left_shift(np.int64(1), np.arange(plen, dtype=np.int64))
+    bits = (oh != 0).astype(np.int64)                     # [P, plen, 4]
+    # distinct powers of two: the int64 sum is exact, bit 63 included
+    return torch.from_numpy(np.einsum("pkb,k->pb", bits, weights)).to(device)
+
+
+def pack_patterns(primers_1h, suffix_1h, *, device):
+    """Pattern one-hots [P, plen <= 63, 4] and their 3'-suffix one-hots ->
+    (planes, suffix_planes), int64 [P, 4] on ``device``, for the hit-code
+    and bitmap kernels."""
+    plen = np.shape(primers_1h)[1]
     if plen > MAX_PLEN:
         raise ValueError("pattern length %d exceeds %d" % (plen, MAX_PLEN))
-    weights = np.left_shift(np.int64(1), np.arange(plen, dtype=np.int64))
-
-    def planes(oh):
-        bits = (oh != 0).astype(np.int64)                # [P, plen, 4]
-        return np.einsum("pkb,k->pb", bits, weights)      # exact int64
-
-    return (torch.from_numpy(planes(p1h)).to(device),
-            torch.from_numpy(planes(s1h)).to(device))
+    return (pattern_planes(primers_1h, device=device),
+            pattern_planes(suffix_1h, device=device))
 
 
 def _unpack_planes(planes, plen):
     """int64 [P, 4] bit-planes -> one-hot float32 [P, 4, plen]."""
     bits = torch.arange(plen, device=planes.device)
     return ((planes[:, :, None] >> bits) & 1).to(torch.float32)
+
+
+def _check_inputs(fn, dev, tensors):
+    """Raise unless each (name, tensor, dtype, ndim) is a contiguous tensor
+    of that dtype and rank on ``dev``: what a kernel's pointers assume."""
+    for name, t, dtype, ndim in tensors:
+        if t.device != dev or t.dtype != dtype or t.dim() != ndim \
+                or not t.is_contiguous():
+            raise ValueError(
+                "%s: %s must be a contiguous %dD %s tensor on %s, got %s %s "
+                "on %s" % (fn, name, ndim, dtype, dev, t.dtype,
+                           tuple(t.shape), t.device))
+
+
+def _launch(lib, fn, *args):
+    """Call a kernel's C launcher on the current stream; raise on an error
+    code (a refused launch never runs, and no synchronize reports it)."""
+    rc = getattr(lib, fn + "_launch")(*args)
+    if rc != 0:
+        raise RuntimeError("%s kernel launch failed: %s (%d)" % (
+            fn, getattr(lib, fn + "_error_string")(rc).decode(), rc))
 
 
 def hit_codes_reference(target_masks, planes, suffix_planes, *, plen, mm,
@@ -175,44 +221,243 @@ def hit_codes(target_masks, planes, suffix_planes, *, plen, mm, term):
     if dev.type == "cpu":
         return hit_codes_reference(target_masks, planes, suffix_planes,
                                    plen=plen, mm=mm, term=term)
-    if dev.type != "cuda":
-        raise ValueError("hit_codes: unsupported device %s" % dev)
-    for name, t, dtype, ndim in (("target_masks", target_masks, torch.uint8, 2),
-                                 ("planes", planes, torch.int64, 2),
-                                 ("suffix_planes", suffix_planes,
-                                  torch.int64, 2)):
-        if t.device != dev or t.dtype != dtype or t.dim() != ndim \
-                or not t.is_contiguous():
-            raise ValueError(
-                "hit_codes: %s must be a contiguous %dD %s tensor on %s, "
-                "got %s %s on %s" % (name, ndim, dtype, dev, t.dtype,
-                                     tuple(t.shape), t.device))
-    p = planes.shape[0]
-    if planes.shape[1] != 4 or tuple(suffix_planes.shape) != (p, 4):
-        raise ValueError("hit_codes: planes and suffix_planes must be "
-                         "[P, 4], got %s and %s"
-                         % (tuple(planes.shape), tuple(suffix_planes.shape)))
-    if not 1 <= plen <= MAX_PLEN:
-        raise ValueError("hit_codes: plen must be in 1..%d, got %d"
-                         % (MAX_PLEN, plen))
-    n, length = target_masks.shape
+    n, length, p = _check_scan_inputs("hit_codes", target_masks, planes,
+                                      suffix_planes, plen)
     codes = torch.empty((n, max(length - plen + 1, 0), p), dtype=torch.int8,
                         device=dev)
     if codes.numel() == 0:
         return codes
     from . import _cuda
-    lib = _cuda.load("hit_codes")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hit_codes_launch(
-            target_masks.data_ptr(), planes.data_ptr(),
-            suffix_planes.data_ptr(), codes.data_ptr(), n, length, p,
-            int(plen), int(mm), int(term), stream)
-    if rc != 0:
-        raise RuntimeError("hit_codes kernel launch failed: %s (%d)"
-                           % (lib.hit_codes_error_string(rc).decode(), rc))
+        _launch(_cuda.load("hit_codes"), "hit_codes",
+                target_masks.data_ptr(), planes.data_ptr(),
+                suffix_planes.data_ptr(), codes.data_ptr(), n, length, p,
+                int(plen), int(mm), int(term),
+                torch.cuda.current_stream(dev).cuda_stream)
     HIT_CODES_LAUNCHES += 1
     return codes
+
+
+def _check_scan_inputs(fn, target_masks, planes, suffix_planes, plen):
+    """The CUDA-side checks shared by the hit-code and bitmap wrappers ->
+    (N, L, P)."""
+    dev = target_masks.device
+    if dev.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (fn, dev))
+    _check_inputs(fn, dev, (("target_masks", target_masks, torch.uint8, 2),
+                            ("planes", planes, torch.int64, 2),
+                            ("suffix_planes", suffix_planes, torch.int64, 2)))
+    p = planes.shape[0]
+    if planes.shape[1] != 4 or tuple(suffix_planes.shape) != (p, 4):
+        raise ValueError("%s: planes and suffix_planes must be [P, 4], got "
+                         "%s and %s" % (fn, tuple(planes.shape),
+                                        tuple(suffix_planes.shape)))
+    if not 1 <= plen <= MAX_PLEN:
+        raise ValueError("%s: plen must be in 1..%d, got %d"
+                         % (fn, MAX_PLEN, plen))
+    return target_masks.shape[0], target_masks.shape[1], p
+
+
+# ---------------------------------------------------------------------------
+# match counts: the correlation under ops/dimer.py
+# ---------------------------------------------------------------------------
+
+def match_counts_reference(target_masks, planes, *, plen):
+    """Plain PyTorch version of the match-count kernel: one float32 conv1d
+    of the masks' one-hots (every set bit, no purity rule) against the
+    patterns' -> float32 [N, O, P], as the JAX package's match_counts_conv.
+    Counts are integers <= 4 * plen; TF32 is switched off, as it would
+    round them."""
+    n, length = target_masks.shape
+    p = planes.shape[0]
+    n_out = length - plen + 1
+    if n_out <= 0:
+        return torch.zeros((n, 0, p), dtype=torch.float32,
+                           device=target_masks.device)
+    m = target_masks.to(torch.int64)
+    x = ((m[:, None, :] >> torch.arange(4, device=m.device)[None, :, None])
+         & 1).to(torch.float32)                               # [N, 4, L]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        counts = F.conv1d(x, _unpack_planes(planes, plen))    # [N, P, O]
+    return counts.permute(0, 2, 1).contiguous()               # [N, O, P]
+
+
+def match_counts_kernel(target_masks, planes, *, plen):
+    """float32 match counts [N, O = L - plen + 1, P] for uint8 [N, L]
+    target masks and int64 [P, 4] pattern planes: the number of (position,
+    base) pairs where both have the bit set.
+
+    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take the
+    plain version."""
+    global MATCH_COUNTS_LAUNCHES
+    dev = target_masks.device
+    if dev.type == "cpu":
+        return match_counts_reference(target_masks, planes, plen=plen)
+    if dev.type != "cuda":
+        raise ValueError("match_counts: unsupported device %s" % dev)
+    _check_inputs("match_counts", dev,
+                  (("target_masks", target_masks, torch.uint8, 2),
+                   ("planes", planes, torch.int64, 2)))
+    if planes.shape[1] != 4:
+        raise ValueError("match_counts: planes must be [P, 4], got %s"
+                         % (tuple(planes.shape),))
+    if not 1 <= plen <= MAX_COUNT_PLEN:
+        raise ValueError("match_counts: plen must be in 1..%d, got %d"
+                         % (MAX_COUNT_PLEN, plen))
+    n, length = target_masks.shape
+    p = planes.shape[0]
+    counts = torch.empty((n, max(length - plen + 1, 0), p),
+                         dtype=torch.float32, device=dev)
+    if counts.numel() == 0:
+        return counts
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _launch(_cuda.load("match_counts"), "match_counts",
+                target_masks.data_ptr(), planes.data_ptr(),
+                counts.data_ptr(), n, length, p, int(plen),
+                torch.cuda.current_stream(dev).cuda_stream)
+    MATCH_COUNTS_LAUNCHES += 1
+    return counts
+
+
+def match_counts(targets_1h, primers_1h, *, device="cuda"):
+    """[N, L, 4] x [P, plen, 4] one-hots (NumPy or tensors) -> float32
+    match counts [N, L - plen + 1, P] on ``device``: the values of the JAX
+    package's match_counts_conv and match_counts_pallas."""
+    dev = linkmod.resolve_device(device)
+    masks = onehot_masks(targets_1h).to(dev)
+    planes = pattern_planes(np.asarray(primers_1h), device=dev)
+    return match_counts_kernel(masks, planes, plen=np.shape(primers_1h)[1])
+
+
+# ---------------------------------------------------------------------------
+# the two-phase bitmap scan
+# ---------------------------------------------------------------------------
+
+def pure_masks(target_masks):
+    """uint8 [N, L] IUPAC masks (tensor) -> the same with every mask that is
+    not a single base set to 0: ambiguity codes, gaps and padding match
+    nothing, the purity rule of expand_masks and of the hit-code kernel."""
+    m = target_masks
+    return torch.where((m == 1) | (m == 2) | (m == 4) | (m == 8), m, 0)
+
+
+def hit_window_bitmap_reference(target_masks, planes, suffix_planes, *, plen,
+                                mm, term):
+    """Plain PyTorch version of the bitmap kernel: the plain match counts of
+    the patterns and of their suffixes (every mask bit a base), the mm/term
+    rule, ``any`` over the patterns -> int8 [N, O].  On pure targets (at
+    most one bit a position) it is the plain hit codes reduced with
+    ``any``."""
+    counts = match_counts_reference(target_masks, planes, plen=plen)
+    sfx = match_counts_reference(target_masks, suffix_planes, plen=plen)
+    return ((plen - counts <= mm) & (sfx >= term)).any(dim=2).to(torch.int8)
+
+
+def hit_window_bitmap_kernel(target_masks, planes, suffix_planes, *, plen,
+                             mm, term):
+    """int8 any-hit bitmap [N, O = L - plen + 1]: 1 iff some pattern hits
+    the window under the mm/term rule of ``hit_codes`` (no window-length
+    mask).  ``target_masks`` are uint8 [N, L] base sets, bit b set iff the
+    position holds base b: a position with several bases counts once per
+    base it shares with the pattern, as the JAX package's matmul counts
+    such a one-hot.  IUPAC masks go through ``pure_masks`` first.
+    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take the
+    plain version."""
+    global HIT_WINDOW_BITMAP_LAUNCHES
+    if target_masks.device.type == "cpu":
+        return hit_window_bitmap_reference(target_masks, planes,
+                                           suffix_planes, plen=plen, mm=mm,
+                                           term=term)
+    n, length, p = _check_scan_inputs("hit_window_bitmap", target_masks,
+                                      planes, suffix_planes, plen)
+    dev = target_masks.device
+    bitmap = torch.empty((n, max(length - plen + 1, 0)), dtype=torch.int8,
+                         device=dev)
+    if bitmap.numel() == 0:
+        return bitmap
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _launch(_cuda.load("hit_window_bitmap"), "hit_window_bitmap",
+                target_masks.data_ptr(), planes.data_ptr(),
+                suffix_planes.data_ptr(), bitmap.data_ptr(), n, length, p,
+                int(plen), int(mm), int(term),
+                torch.cuda.current_stream(dev).cuda_stream)
+    HIT_WINDOW_BITMAP_LAUNCHES += 1
+    return bitmap
+
+
+def hit_window_bitmap(targets, lengths, planes, suffix_planes, *, plen, mm=1,
+                      term=4):
+    """Any-hit window bitmap [N, O] int8 with the in-sequence length mask
+    applied, the JAX package's hit_window_bitmap.  ``targets`` is uint8
+    [N, L] IUPAC masks (ambiguity codes match nothing, as expand_masks) or
+    a one-hot [N, L, 4] taken as it is: a position with several bases
+    counts once per base it shares with the pattern, as in the JAX
+    package."""
+    masks = onehot_masks(targets) if targets.dim() == 3 else \
+        pure_masks(targets)
+    bm = hit_window_bitmap_kernel(masks, planes, suffix_planes, plen=plen,
+                                  mm=mm, term=term)
+    return _inside_windows(bm, lengths, plen)
+
+
+def _inside_windows(bm, lengths, plen):
+    """Zero the windows of bm [N, O] that run past their sequence's
+    length."""
+    o_idx = torch.arange(bm.shape[1], device=bm.device)
+    inside = (o_idx[None, :] + plen) <= lengths.to(bm.device)[:, None]
+    return torch.where(inside, bm, 0)
+
+
+# flagged windows re-matched per host matmul: bounds its [H, 2P] float32
+# accumulator (390 MB at P = 744)
+_REMATCH_CHUNK = 1 << 16
+
+
+def find_hits_bitmap(targets_1h, lengths, primers_1h, suffix_1h, *, mm=1,
+                     term=4, device="cuda"):
+    """Two-phase sparse scan, the JAX package's find_hits_bitmap: a device
+    any-hit bitmap (N * O bytes instead of N * O * P), then a host re-match
+    of the flagged windows only.  NumPy one-hots in; (seq, window, primer,
+    mism) arrays out, in ascending (n, o, p) order as find_hits.  The
+    re-match applies the same mm/term rule, _REMATCH_CHUNK windows at a
+    time."""
+    dev = linkmod.resolve_device(device)
+    t1h = np.asarray(targets_1h)
+    p1h = np.asarray(primers_1h)
+    s1h = np.asarray(suffix_1h)
+    p, plen = p1h.shape[0], p1h.shape[1]
+    planes, sfx = pack_patterns(p1h, s1h, device=dev)
+    # the base sets cross to the device: a quarter of the one-hot's bytes
+    masks = onehot_masks(t1h).to(dev)
+    bm = hit_window_bitmap_kernel(masks, planes, sfx, plen=plen, mm=mm,
+                                  term=term)
+    bm = _inside_windows(bm, torch.as_tensor(np.asarray(lengths)), plen)
+    ns, os_ = np.nonzero(bm.cpu().numpy())
+    if len(ns) == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z.astype(np.int32)
+    out = ([], [], [], [])
+    weights = np.concatenate([p1h, s1h], axis=0).reshape(
+        2 * p, plen * 4).astype(np.float32).T                # [4*plen, 2P]
+    # [N, O, 4, plen] view: one fancy index gathers the flagged windows
+    win_view = np.lib.stride_tricks.sliding_window_view(t1h, plen, axis=1)
+    for lo in range(0, len(ns), _REMATCH_CHUNK):
+        n_c = ns[lo:lo + _REMATCH_CHUNK]
+        o_c = os_[lo:lo + _REMATCH_CHUNK]
+        wmat = win_view[n_c, o_c].transpose(0, 2, 1).reshape(
+            len(n_c), plen * 4).astype(np.float32)           # [H, plen*4]
+        acc = wmat @ weights                                 # [H, 2P]
+        counts = acc[:, :p].astype(np.int32)
+        sfx_c = acc[:, p:].astype(np.int32)
+        mism = plen - counts
+        h, pi = np.nonzero((mism <= mm) & (sfx_c >= term))
+        for dst, part in zip(out, (n_c[h], o_c[h], pi, mism[h, pi])):
+            dst.append(part)
+    seq, win, pat, mis = (np.concatenate(part) for part in out)
+    return (seq.astype(np.int64), win.astype(np.int64), pat.astype(np.int64),
+            mis.astype(np.int32))
 
 
 def find_hits_from_codes(codes, lengths, *, plen, max_hits):

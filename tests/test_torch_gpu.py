@@ -1,4 +1,4 @@
-"""The CUDA hit-code kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions.
 
 Marked ``gpu``: these skip where torch.cuda.is_available() is False.  This
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from multiprime_tpu_torch.ops import dimer
 from multiprime_tpu_torch.ops import mismatch_scan as ms
 from multiprime_tpu_torch.validate import scan as vscan
 
@@ -107,3 +108,133 @@ def test_find_hits_and_scan_on_card(cuda):
     host_hits = vscan.scan_hits(dense, pats, vscan.ScanParams(
         backend="numpy", **params), device=cuda)
     assert len(dev_hits) > 1 << 17 and dev_hits == host_hits
+
+
+def _multi_base_masks(rng, n, length):
+    """Random 4-bit masks: pure, ambiguous (several bits) and empty."""
+    return rng.integers(0, 16, size=(n, length)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("plen", [5, 8, 18, 24, 32, 40, 64])
+def test_match_counts_kernel_equals_plain(cuda, plen):
+    rng = np.random.default_rng(1000 + plen)
+    for n, length, n_pat in ((1, plen, 1), (37, plen + 70, 77),
+                             (5, plen + 300, 513)):
+        masks = torch.from_numpy(_multi_base_masks(rng, n, length)).to(cuda)
+        p1h = rng.integers(0, 2, size=(n_pat, plen, 4)).astype(np.uint8)
+        p1h[0, :plen // 2] = 0                   # left-padding columns
+        planes = ms.pattern_planes(p1h, device=cuda)
+        before = ms.MATCH_COUNTS_LAUNCHES
+        got = ms.match_counts_kernel(masks, planes, plen=plen)
+        assert ms.MATCH_COUNTS_LAUNCHES == before + 1
+        want = ms.match_counts_reference(masks, planes, plen=plen)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.equal(got, want), (
+            plen, n, length, n_pat)
+
+
+@pytest.mark.parametrize("plen", [8, 18, 20, 32, 63])
+def test_bitmap_kernel_equals_plain(cuda, plen):
+    rng = np.random.default_rng(2000 + plen)
+    for mm in range(5):
+        for term in (0, 1, 4, plen + 1):
+            masks, _, p1h, s1h = _inputs(rng, 23, plen - 3, 700, 300, plen,
+                                         term)
+            tm = torch.from_numpy(masks).to(cuda)
+            planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
+            kw = dict(plen=plen, mm=mm, term=term)
+            # the raw IUPAC masks: R, Y and N are several bases a position
+            before = ms.HIT_WINDOW_BITMAP_LAUNCHES
+            got = ms.hit_window_bitmap_kernel(tm, planes, sfx, **kw)
+            assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
+            want = ms.hit_window_bitmap_reference(tm, planes, sfx, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (plen, mm, term)
+            # pure masks: the hit codes' any over the patterns
+            got = ms.hit_window_bitmap_kernel(ms.pure_masks(tm), planes, sfx,
+                                              **kw)
+            want = ms.hit_codes_reference(tm, planes, sfx, **kw) > 0
+            torch.cuda.synchronize()
+            assert torch.equal(got, want.any(dim=2).to(torch.int8)), (
+                plen, mm, term)
+
+
+def test_new_wrappers_refuse_bad_inputs(cuda):
+    masks = torch.zeros((4, 80), dtype=torch.uint8, device=cuda)
+    planes = torch.zeros((8, 4), dtype=torch.int64, device=cuda)
+    for bad in (masks.to(torch.int32), masks[:, ::2]):
+        with pytest.raises(ValueError, match="target_masks"):
+            ms.match_counts_kernel(bad, planes, plen=18)
+        with pytest.raises(ValueError, match="target_masks"):
+            ms.hit_window_bitmap_kernel(bad, planes, planes, plen=18, mm=1,
+                                        term=1)
+    with pytest.raises(ValueError, match="planes"):
+        ms.match_counts_kernel(masks, planes.cpu(), plen=18)
+    with pytest.raises(ValueError, match="planes"):
+        ms.match_counts_kernel(masks, planes[:, :2].contiguous(), plen=18)
+    with pytest.raises(ValueError, match="suffix_planes"):
+        ms.hit_window_bitmap_kernel(masks, planes, planes.to(torch.int32),
+                                    plen=18, mm=1, term=1)
+    with pytest.raises(ValueError, match="plen"):
+        ms.match_counts_kernel(masks, planes, plen=65)
+    with pytest.raises(ValueError, match="plen"):
+        ms.hit_window_bitmap_kernel(masks, planes, planes, plen=64, mm=1,
+                                    term=1)
+
+
+def test_find_hits_bitmap_on_card(cuda):
+    rng = np.random.default_rng(4)
+    masks, lens, p1h, s1h = _inputs(rng, 40, 100, 900, 130, 18, 2,
+                                    letters="ACGTACGTACGTN")
+    seqs_1h = ((masks[..., None] >> np.arange(4)) & 1).astype(np.uint8)
+    seqs_1h *= np.isin(masks, [1, 2, 4, 8])[..., None]
+    before = ms.HIT_WINDOW_BITMAP_LAUNCHES
+    got = ms.find_hits_bitmap(seqs_1h, lens, p1h, s1h, mm=3, term=2,
+                              device=cuda)
+    assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
+    idx, n_hits, mism = ms.find_hits(
+        torch.from_numpy(masks).to(cuda), torch.from_numpy(lens).to(cuda),
+        planes, sfx, plen=18, mm=3, term=2, max_hits=1 << 16)
+    want = ms.decode_hits(idx.cpu().numpy(), mism.cpu().numpy(),
+                          masks.shape[1] - 17, p1h.shape[0])
+    assert 0 < int(n_hits) == len(got[0])
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_find_hits_bitmap_multi_base_onehot_on_card(cuda):
+    """One-hots with several bases at a position count each shared base;
+    the hits are those of the NumPy scan."""
+    rng = np.random.default_rng(5)
+    masks, lens, p1h, s1h = _inputs(rng, 30, 100, 600, 60, 13, 2,
+                                    letters="ACGTACGTNRYSWKM")
+    raw_1h = ((masks[..., None] >> np.arange(4)) & 1).astype(np.uint8)
+    before = ms.HIT_WINDOW_BITMAP_LAUNCHES
+    got = ms.find_hits_bitmap(raw_1h, lens, p1h, s1h, mm=2, term=2,
+                              device=cuda)
+    assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
+    want = ms.find_hits_numpy(raw_1h, lens, p1h, s1h, mm=2, term=2)
+    assert len(want) > 0 and (want[:, 3] < 0).any()   # counts above plen
+    for k, g in enumerate(got):
+        assert np.array_equal(g, want[:, k])
+
+
+def test_dimer_matrices_on_card(cuda):
+    rng = np.random.default_rng(9)
+    lut = np.array(list("ACGT"))
+    primers = ["".join(rng.choice(lut, size=int(rng.integers(15, 24))))
+               for _ in range(40)]
+    primers[2] = primers[2][:6] + "".join(
+        {"A": "T", "C": "G", "G": "C", "T": "A"}[c]
+        for c in reversed(primers[1][-12:]))
+    primers[5] = primers[5][:8] + "R" + primers[5][9:]
+    primers[7] = primers[7][:4] + "N" + primers[7][5:]
+    host = dimer.verify_against_host(primers)
+    before = ms.MATCH_COUNTS_LAUNCHES
+    fused = dimer.dimer_hit_matrix_fused(primers, device=cuda)
+    assert ms.MATCH_COUNTS_LAUNCHES == before + 1
+    unfused = dimer.dimer_hit_matrix(primers, device=cuda)
+    assert ms.MATCH_COUNTS_LAUNCHES > before + 1
+    assert fused[1, 2]
+    assert np.array_equal(fused, host) and np.array_equal(unfused, host)

@@ -9,6 +9,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -70,6 +71,8 @@ with open(fa, "w") as f:
 from multiprime_tpu_torch.pipeline.driver import run_pipeline
 import multiprime_tpu_torch.cli.main
 import multiprime_tpu_torch.ops._cuda
+from multiprime_tpu_torch.ops import dimer
+dimer.dimer_hit_matrix_fused(["ACGTACGTAC", "GTACGTACGT"], device="cpu")
 pipe, _ = run_pipeline(None, input_fa=fa, results_dir=os.path.join(root, "r"),
                        virus_name="three", coverage=0.5, min_seq_length=100,
                        product_size=(100, 400), algo="v20", device="cpu")
@@ -90,6 +93,7 @@ def test_port_run_loads_no_jax(tmp_path):
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in got["modules"] if _forbidden(m)] == []
     assert "multiprime_tpu_torch.validate.scan" in got["modules"]
+    assert "multiprime_tpu_torch.ops.dimer" in got["modules"]
     assert got["backends"]["scan_backend"] == "device"
     assert (tmp_path / "r" / "Core_primers_set" / "BWT_coverage").is_dir()
 
@@ -130,6 +134,31 @@ def test_cuda_without_gpu_raises(tmp_path):
     assert not (tmp_path / "o.out").exists()
 
 
+def _new_entry_points():
+    """The entry points of the dimer matrix and the two-phase scan, called
+    with their default device."""
+    from multiprime_tpu_torch.ops import dimer
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    oh = np.zeros((2, 24, 4), np.uint8)
+    return {
+        "dimer_hit_matrix": lambda: dimer.dimer_hit_matrix(["ACGTACGTAC"]),
+        "dimer_hit_matrix_fused":
+            lambda: dimer.dimer_hit_matrix_fused(["ACGTACGTAC"]),
+        "match_counts": lambda: ms.match_counts(oh, oh[:1, :8]),
+        "find_hits_bitmap": lambda: ms.find_hits_bitmap(
+            oh, np.array([24, 24]), oh[:1, :8], oh[:1, :8]),
+    }
+
+
+@pytest.mark.parametrize("name", ["dimer_hit_matrix",
+                                  "dimer_hit_matrix_fused", "match_counts",
+                                  "find_hits_bitmap"])
+def test_new_entry_points_default_to_cuda(name):
+    _needs_no_gpu()
+    with pytest.raises(RuntimeError, match="is_available"):
+        _new_entry_points()[name]()
+
+
 @pytest.mark.parametrize("override", [
     {"devices": 2}, {"align_backend": "progressive"},
     {"design_backend": "wrc"}])
@@ -155,3 +184,25 @@ def test_fork_safe_tracks_cuda(monkeypatch):
     assert mcdpd.fork_safe() == (not torch.cuda.is_initialized())
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     assert mcdpd.fork_safe() is False
+
+
+def test_kernel_build_goes_stale_with_its_source_or_a_header(tmp_path,
+                                                            monkeypatch):
+    from multiprime_tpu_torch.ops import _cuda
+    src, build = tmp_path / "csrc", tmp_path / "_build"
+    src.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_cuda, "SRC_DIR", str(src))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(build))
+    (src / "k.cu").write_text("")
+    (src / "shared.cuh").write_text("")
+    assert _cuda._stale("k")                   # never built
+    (build / "libk.so").write_text("")
+    for path, t in ((src / "k.cu", 1), (src / "shared.cuh", 1),
+                    (build / "libk.so", 2)):
+        os.utime(path, (t, t))
+    assert not _cuda._stale("k")
+    for newer in ("k.cu", "shared.cuh"):
+        os.utime(src / newer, (3, 3))
+        assert _cuda._stale("k")
+        os.utime(src / newer, (1, 1))

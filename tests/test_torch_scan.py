@@ -78,7 +78,7 @@ def data():
 
 def _port_codes(seqs, p1h, s1h, mm, term, length=None):
     masks, _ = tms.encode_target_masks(seqs, length)
-    planes, sfx = tms.pack_patterns(p1h, s1h)
+    planes, sfx = tms.pack_patterns(p1h, s1h, device="cpu")
     return tms.hit_codes(torch.from_numpy(masks), planes, sfx,
                          plen=p1h.shape[1], mm=mm, term=term).numpy()
 
@@ -145,7 +145,7 @@ def test_decoders_and_numpy_scan_equal_jax():
 
 def test_pack_patterns_bits():
     p1h = tms.encode_primers(["ACGTRN", "TTTTTT"])
-    planes, sfx = tms.pack_patterns(p1h, _suffix(p1h, 2))
+    planes, sfx = tms.pack_patterns(p1h, _suffix(p1h, 2), device="cpu")
     assert planes.dtype == torch.int64 and tuple(planes.shape) == (2, 4)
     # plane b, bit k <=> one-hot [p, k, b]
     for p in range(2):
@@ -156,7 +156,9 @@ def test_pack_patterns_bits():
     assert int(sfx[1, 3]) == (1 << 4) | (1 << 5)
     with pytest.raises(ValueError, match="exceeds"):
         tms.pack_patterns(np.zeros((1, 64, 4), np.uint8),
-                          np.zeros((1, 64, 4), np.uint8))
+                          np.zeros((1, 64, 4), np.uint8), device="cpu")
+    with pytest.raises(TypeError, match="device"):
+        tms.pack_patterns(p1h, p1h)
 
 
 def test_hit_codes_plain_equals_conv_and_pallas(data):
@@ -218,7 +220,7 @@ def test_hit_codes_rows_shorter_than_pattern():
 
 def test_hit_codes_wrapper_checks_device():
     p1h = tms.encode_primers(["ACGTACGT"])
-    planes, sfx = tms.pack_patterns(p1h, _suffix(p1h, 2))
+    planes, sfx = tms.pack_patterns(p1h, _suffix(p1h, 2), device="cpu")
     masks = torch.zeros((2, 16), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tms.hit_codes(masks, planes, sfx, plen=8, mm=1, term=2)
@@ -243,7 +245,7 @@ def test_find_hits_equals_jax(max_hits):
     masks, lens, p1h, s1h = _find_inputs(3)
     want = jms.find_hits(masks, lens, p1h, s1h, mm=3, term=2,
                          max_hits=max_hits)
-    planes, sfx = tms.pack_patterns(p1h, s1h)
+    planes, sfx = tms.pack_patterns(p1h, s1h, device="cpu")
     got = tms.find_hits(torch.from_numpy(masks), torch.from_numpy(lens),
                         planes, sfx, plen=18, mm=3, term=2, max_hits=max_hits)
     n_hits = int(want[1])
@@ -267,7 +269,7 @@ def test_find_hits_batched_equals_jax():
         want = np.asarray(jms.find_hits_batched(
             jnp.asarray(tm), jnp.asarray(lm), p1h, s1h, mm=2, term=1,
             max_hits=64, want_mism=want_mism))
-        planes, sfx = tms.pack_patterns(p1h, s1h)
+        planes, sfx = tms.pack_patterns(p1h, s1h, device="cpu")
         got = tms.find_hits_batched(
             torch.from_numpy(tm), torch.from_numpy(lm), planes, sfx,
             plen=18, mm=2, term=1, max_hits=64, want_mism=want_mism)
