@@ -10,10 +10,14 @@ Phases (each prints one line or more; any failure exits non-zero before
 the final line):
 
 1. card and build: the card's name and power limit, then nvcc builds every
-   kernel in multiprime_tpu_torch/csrc from the checkout's sources;
+   kernel in multiprime_tpu_torch/csrc from the checkout's sources, and
+   each compiled kernel's registers, spills and static shared memory;
 2. the hit-code kernel against its plain PyTorch version, exact int8
-   equality, on an edge-case grid and at the main path's batch shape, with
-   CUDA-event times of kernel, plain version and a conv1d yardstick;
+   equality, on an edge-case grid (plen 8-63 with K = 4 * plen off the
+   32-byte k-step, P unpadded from 1 to 745, mm up to plen + 1, rows
+   shorter than a window tile) and at the main path's batch shape and the
+   scan cell's, with CUDA-event times of kernel, plain version and a conv1d
+   yardstick;
 3. find_hits_batched on the card against find_hits_numpy on the host, and
    a device scan whose hits overflow the first max_hits (the retry);
 4. `run` through the CLI in a subprocess on the seeded 21k-sequence corpus
@@ -23,7 +27,8 @@ the final line):
    the 21k targets, device vs host byte-identical; then -m 4 on 4200
    targets on the device, held to the plain version through find_hits;
 6. the match-count and bitmap kernels against their plain versions, exact,
-   on edge-case grids;
+   on edge-case grids (the bitmap on phase 2's grid, with raw IUPAC masks
+   of several bases a position and with pure masks);
 7. find_hits_bitmap (the two-phase scan) on the 21k targets against phase
    5's patterns, equal tuple for tuple to find_hits over the scan's
    batches; the bitmap kernel timed at that shape beside its plain version
@@ -44,6 +49,7 @@ import glob
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -133,6 +139,43 @@ def planted_patterns(rng, seqs, n, plen, degenerate=True):
     return out
 
 
+# the tile edges of the tensor-core kernels: K = 4 * plen not a multiple of
+# 32 (plen 9, 33, 63), P unpadded around the 8-pattern n-tiles and the
+# pattern passes, mm at and past plen, rows shorter than a window tile
+GRID_PLENS = (8, 9, 18, 20, 32, 33, 63)
+GRID_PS = (1, 8, 9, 255, 257, 745, 7, 45, 130)
+
+
+def edge_grid(rng):
+    """(plen, mm, term, P, shortest row, longest row) of the kernel grids:
+    every plen with mm 0-4, plen and plen + 1 (below 64, the plain hit
+    codes' limit) and term 0, 1, 4 and plen + 1; P cycles through GRID_PS,
+    every third case has rows of plen to plen + 12 bases (less than one
+    window tile)."""
+    out = []
+    for plen in GRID_PLENS:
+        mms = [mm for mm in (0, 1, 2, 3, 4, plen, plen + 1) if mm < 64]
+        for mm in mms:
+            for term in (0, 1, 4, plen + 1):
+                i = len(out)
+                lo, hi = ((plen, plen + 12) if i % 3 == 0
+                          else (max(1, plen - 3), 600))
+                out.append((plen, mm, term, GRID_PS[i % len(GRID_PS)], lo,
+                            hi))
+    rng.shuffle(out)
+    return out
+
+
+def grid_patterns(ms, rng, seqs, n_pat, plen, term):
+    """n_pat planted patterns (one in five cases led by an all-N pattern,
+    which matches nothing), unpadded, as one-hots and suffix one-hots."""
+    pats = planted_patterns(rng, seqs, n_pat, plen)
+    if n_pat > 1 and rng.random() < 0.2:
+        pats[0] = "N" * plen
+    p1h, s1h = pattern_onehots(ms, pats, term)
+    return p1h[:n_pat], s1h[:n_pat]
+
+
 def phase_build(args, report):
     from multiprime_tpu_torch.ops import _cuda
     smi = subprocess.run(
@@ -148,11 +191,42 @@ def phase_build(args, report):
     report["build_s"] = round(time.time() - t0, 3)
     say("phase 1 build: %.2f s for %s" % (report["build_s"],
                                           sorted(_cuda.BUILD_LOG)))
+    report["ptxas"] = {}
     for name, log in sorted(_cuda.BUILD_LOG.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                say("  ptxas %s: %s" % (name, line.strip()))
-    report["ptxas"] = _cuda.BUILD_LOG
+        for entry in ptxas_entries(log):
+            say("  ptxas %s%s: %d registers, %d B spill stores, %d B spill "
+                "loads, %d B static shared memory" % (
+                    name, entry["template"], entry["registers"],
+                    entry["spill_stores"], entry["spill_loads"],
+                    entry["smem"]))
+            report["ptxas"].setdefault(name, []).append(entry)
+
+
+def ptxas_entries(log):
+    """One dict per compiled kernel of nvcc's -Xptxas -v output: its
+    template argument (the k-steps of a tensor-core kernel), registers,
+    spill stores and loads, static shared memory."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            ks = re.search(r"ILi(\d+)E", m.group(1))
+            cur = {"template": " KS=%s" % ks.group(1) if ks else "",
+                   "registers": 0, "spill_stores": 0, "spill_loads": 0,
+                   "smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def phase_kernel(args, report):
@@ -161,31 +235,23 @@ def phase_kernel(args, report):
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(args.seed)
     cases = 0
-    for plen in (8, 18, 20, 32, 63):
-        for mm in range(5):
-            for term in (0, 1, 2, 4, plen + 1):
-                n = int(rng.integers(1, 40))
-                seqs = random_seqs(rng, n, max(1, plen - 3), 300,
-                                   letters="ACGTacgtNRY-")
-                n_pat = int(rng.choice([1, 7, 45, 77, 130]))
-                pats = planted_patterns(rng, seqs, n_pat, plen)
-                if rng.random() < 0.2:
-                    pats[0] = "N" * plen             # matches nothing
-                p1h, s1h = pattern_onehots(ms, pats, term)
-                masks, _ = ms.encode_target_masks(seqs)
-                tm = torch.from_numpy(masks).to(dev)
-                planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
-                got = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm,
-                                   term=term)
-                want = ms.hit_codes_reference(tm, planes, sfx, plen=plen,
-                                              mm=mm, term=term)
-                torch.cuda.synchronize()
-                if got.shape != want.shape or not torch.equal(got, want):
-                    fail("hit_codes differs from the plain version at plen=%d "
-                         "mm=%d term=%d N=%d L=%d P=%d" % (
-                             plen, mm, term, n, masks.shape[1],
-                             planes.shape[0]))
-                cases += 1
+    for plen, mm, term, n_pat, lo, hi in edge_grid(rng):
+        seqs = random_seqs(rng, int(rng.integers(1, 40)), lo, hi,
+                           letters="ACGTacgtNRY-")
+        p1h, s1h = grid_patterns(ms, rng, seqs, n_pat, plen, term)
+        masks, _ = ms.encode_target_masks(seqs)
+        tm = torch.from_numpy(masks).to(dev)
+        planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+        got = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term)
+        want = ms.hit_codes_reference(tm, planes, sfx, plen=plen, mm=mm,
+                                      term=term)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail("hit_codes differs from the plain version at plen=%d "
+                 "mm=%d term=%d N=%d L=%d P=%d" % (
+                     plen, mm, term, len(seqs), masks.shape[1],
+                     planes.shape[0]))
+        cases += 1
     say("phase 2 grid: %d cases equal (exact int8)" % cases)
 
     # the main path's batch shape: rule-19 scan of a 2000-pattern set
@@ -197,6 +263,16 @@ def phase_kernel(args, report):
     masks, _ = ms.encode_target_masks(seqs, length=length)
     report["hit_codes"] = measure_kernel(ms, masks, p1h, s1h, mm, term,
                                          "phase 2 main shape")
+    # the scan cell's batch shape: 744 patterns (742 keys padded to 8), the
+    # batch size the scan takes for them (40 launches over the 21k targets)
+    p = 744
+    n = ms.safe_batch_size(2048, length - plen + 1, p)
+    seqs = random_seqs(rng, n, 850, 950, letters="ACGTACGTACGTN")
+    p1h, s1h = pattern_onehots(ms, planted_patterns(rng, seqs, p, plen),
+                               term)
+    masks, _ = ms.encode_target_masks(seqs, length=length)
+    report["hit_codes_scan_shape"] = measure_kernel(
+        ms, masks, p1h, s1h, mm, term, "phase 2 scan shape")
 
 
 def bound(n_bytes, ops, ops_per_s):
@@ -247,10 +323,11 @@ def measure_kernel(ms, masks, p1h, s1h, mm, term, label):
                            0).to(torch.int8)
     library_ms = cuda_ms(library, 3)
     # each input read once (masks, both plane sets), the codes written once;
-    # operations of the int8-matmul form: two [N*O, 4*plen] x [4*plen, P]
+    # operations of the int8-matmul form: one [N*O, 4*plen] x [4*plen, P]
+    # over the combined weight primers + 64 * suffix, which gives the codes
     in_bytes = n * length + 2 * planes.numel() * 8
     out_bytes = n * n_out * p_all
-    ops = 2 * 2 * n * n_out * p_all * 4 * plen
+    ops = 2 * n * n_out * p_all * 4 * plen
     out = {"shape": {"N": n, "L": length, "O": n_out, "P": p_all,
                      "plen": plen, "mm": mm, "term": term},
            "hits": hits, "max_abs_err": max_err, "ms": kernel_ms,
@@ -588,35 +665,26 @@ def phase_new_kernels(args, report):
     say("phase 6 match_counts grid: %d cases equal (float32 bit for bit)"
         % cases)
     cases = 0
-    for plen in (8, 18, 20, 32, 63):
-        for mm in range(5):
-            for term in (0, 1, 4, plen + 1):
-                n = int(rng.integers(1, 40))
-                seqs = random_seqs(rng, n, max(1, plen - 3), 600,
-                                   letters="ACGTacgtNRY-")
-                # P across the 256-pattern tiles, some not a multiple of 8
-                n_pat = int(rng.choice([1, 7, 45, 300, 700]))
-                pats = planted_patterns(rng, seqs, n_pat, plen)
-                if rng.random() < 0.2:
-                    pats[0] = "N" * plen             # matches nothing
-                p1h, s1h = pattern_onehots(ms, pats, term)
-                if rng.random() < 0.5:
-                    p1h, s1h = p1h[:n_pat], s1h[:n_pat]
-                # the raw IUPAC masks: N, R and Y are several bases a
-                # position, each counted where the pattern shares it
-                masks, _ = ms.encode_target_masks(seqs)
-                tm = torch.from_numpy(masks).to(dev)
-                planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
-                kw = dict(plen=plen, mm=mm, term=term)
-                got = ms.hit_window_bitmap_kernel(tm, planes, sfx, **kw)
-                want = ms.hit_window_bitmap_reference(tm, planes, sfx, **kw)
-                torch.cuda.synchronize()
-                if got.shape != want.shape or not torch.equal(got, want):
-                    fail("hit_window_bitmap differs from the plain version at "
-                         "plen=%d mm=%d term=%d N=%d L=%d P=%d"
-                         % (plen, mm, term, n, masks.shape[1],
-                            planes.shape[0]))
-                cases += 1
+    for plen, mm, term, n_pat, lo, hi in edge_grid(rng):
+        seqs = random_seqs(rng, int(rng.integers(1, 40)), lo, hi,
+                           letters="ACGTacgtNRY-")
+        p1h, s1h = grid_patterns(ms, rng, seqs, n_pat, plen, term)
+        # the raw IUPAC masks: N, R and Y are several bases a position,
+        # each counted where the pattern shares it; then the pure masks
+        masks, _ = ms.encode_target_masks(seqs)
+        tm = torch.from_numpy(masks).to(dev)
+        planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+        kw = dict(plen=plen, mm=mm, term=term)
+        for t in (tm, ms.pure_masks(tm)):
+            got = ms.hit_window_bitmap_kernel(t, planes, sfx, **kw)
+            want = ms.hit_window_bitmap_reference(t, planes, sfx, **kw)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                fail("hit_window_bitmap differs from the plain version at "
+                     "plen=%d mm=%d term=%d N=%d L=%d P=%d"
+                     % (plen, mm, term, len(seqs), masks.shape[1],
+                        planes.shape[0]))
+            cases += 1
     say("phase 6 hit_window_bitmap grid: %d cases equal (exact int8; "
         "targets with several bases a position)" % cases)
 

@@ -214,8 +214,11 @@ def hit_codes(target_masks, planes, suffix_planes, *, plen, mm, term):
     = hit under the mm/term rule) for uint8 [N, L] target masks and int64
     [P, 4] pattern planes.
 
-    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take the
-    plain version."""
+    CUDA tensors launch the CUDA kernel ``csrc/hit_codes.cu`` (or raise):
+    the match counts as an int8 tensor-core product (mma.sync), a suffix
+    test for the rare candidates only, the codes zeroed by bulk copies and
+    the hits' codes written over them.  CPU tensors take the plain
+    version."""
     global HIT_CODES_LAUNCHES
     dev = target_masks.device
     if dev.type == "cpu":
@@ -362,8 +365,10 @@ def hit_window_bitmap_kernel(target_masks, planes, suffix_planes, *, plen,
     position holds base b: a position with several bases counts once per
     base it shares with the pattern, as the JAX package's matmul counts
     such a one-hot.  IUPAC masks go through ``pure_masks`` first.
-    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take the
-    plain version."""
+    CUDA tensors launch the CUDA kernel ``csrc/hit_window_bitmap.cu`` (or
+    raise): the match counts as an int8 tensor-core product (wgmma), their
+    row maximum against plen - mm, the suffix test for candidates only.
+    CPU tensors take the plain version."""
     global HIT_WINDOW_BITMAP_LAUNCHES
     if target_masks.device.type == "cpu":
         return hit_window_bitmap_reference(target_masks, planes,

@@ -193,6 +193,37 @@ def test_hit_window_bitmap_multi_base_onehot_equals_pallas(multi_base_inputs,
     assert not torch.equal(got, purified)
 
 
+@pytest.mark.parametrize("kind", ["pure", "multi_base"])
+@pytest.mark.parametrize("plen,mm", [(33, 1), (33, 33), (63, 2), (63, 63)])
+def test_bitmap_plain_long_patterns_equals_pallas(plen, mm, kind):
+    """The tile edges of the tensor-core kernel: plen 33 and 63 (K off its
+    32-byte k-steps) and mm at plen, on pure one-hots and on one-hots with
+    several bases a position (counts above plen): the plain version on the
+    base sets equals the Pallas kernel, term 0 and 3."""
+    rng = np.random.default_rng(700 + plen + mm)
+    seqs = _rand_seqs(rng, 4, plen - 2, plen + 80,
+                      letters="ACGTacgtNRYSWKM-")
+    seqs[0] += "ACGT" * plen
+    if kind == "pure":
+        t1h, _ = jms.encode_targets(seqs)
+    else:
+        t1h, _ = _raw_onehot(seqs)
+    pats = _planted(rng, seqs, 9, plen, degenerate=0.6)
+    for term in (0, 3):
+        p1h = jms.encode_primers(pats)
+        p1h, s1h = _pad8(p1h, _suffix(p1h, term))
+        pallas = np.asarray(jms.hit_window_bitmap_pallas(
+            jnp.asarray(t1h, jnp.int8), jnp.asarray(p1h), jnp.asarray(s1h),
+            mm=mm, term=term, interpret=True))
+        planes, sfx = tms.pack_patterns(p1h, s1h, device="cpu")
+        got = tms.hit_window_bitmap_reference(tms.onehot_masks(t1h), planes,
+                                              sfx, plen=plen, mm=mm,
+                                              term=term)
+        assert got.dtype == torch.int8
+        assert np.array_equal(got.numpy(), pallas), term
+        assert got.numpy().any()
+
+
 # ---------------------------------------------------------------------------
 # find_hits_bitmap
 # ---------------------------------------------------------------------------

@@ -53,22 +53,47 @@ def _inputs(rng, n, lo, hi, n_pat, plen, term, letters="ACGTacgtNRY-"):
     return masks, lens, p1h, s1h
 
 
-@pytest.mark.parametrize("plen", [8, 18, 20, 32, 63])
+# the tile edges of the tensor-core kernels: K = 4 * plen not a multiple of
+# 32 (9, 33, 63), P unpadded across the 8-pattern n-tiles and the pattern
+# passes, mm at and past plen, rows shorter than a 16-window tile
+EDGE_PLENS = (8, 9, 18, 20, 32, 33, 63)
+EDGE_PS = (1, 8, 9, 255, 257, 745)
+
+
+def edge_grid(plen):
+    """(mm, term, P, row length range) cases of one plen's edge grid."""
+    mms = [mm for mm in (0, 1, 2, 3, 4, plen, plen + 1) if mm < 64]
+    out = []
+    for i, (mm, term) in enumerate((mm, term) for mm in mms
+                                   for term in (0, 1, 4, plen + 1)):
+        lo, hi = (plen, plen + 12) if i % 3 == 0 else (plen - 3, 700)
+        out.append((mm, term, EDGE_PS[i % len(EDGE_PS)], lo, hi))
+    return out
+
+
+def edge_inputs(rng, plen, term, n_pat, lo, hi):
+    """Unpadded patterns (n_pat of them) against targets of lo..hi bases;
+    a single pattern is a planted one, not the all-N first row."""
+    masks, lens, p1h, s1h = _inputs(rng, int(rng.integers(1, 24)), lo, hi,
+                                    n_pat + 1, plen, term)
+    keep = slice(1, 2) if n_pat == 1 else slice(0, n_pat)
+    return masks, lens, p1h[keep], s1h[keep]
+
+
+@pytest.mark.parametrize("plen", EDGE_PLENS)
 def test_kernel_equals_plain(cuda, plen):
     rng = np.random.default_rng(plen)
-    for mm in range(5):
-        for term in (0, 1, 4, plen + 1):
-            masks, _, p1h, s1h = _inputs(rng, 23, plen - 3, 400, 77, plen,
-                                         term)
-            tm = torch.from_numpy(masks).to(cuda)
-            planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
-            before = ms.HIT_CODES_LAUNCHES
-            got = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term)
-            assert ms.HIT_CODES_LAUNCHES == before + 1
-            want = ms.hit_codes_reference(tm, planes, sfx, plen=plen, mm=mm,
-                                          term=term)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (plen, mm, term)
+    for mm, term, n_pat, lo, hi in edge_grid(plen):
+        masks, _, p1h, s1h = edge_inputs(rng, plen, term, n_pat, lo, hi)
+        tm = torch.from_numpy(masks).to(cuda)
+        planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
+        before = ms.HIT_CODES_LAUNCHES
+        got = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term)
+        assert ms.HIT_CODES_LAUNCHES == before + 1
+        want = ms.hit_codes_reference(tm, planes, sfx, plen=plen, mm=mm,
+                                      term=term)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (plen, mm, term, n_pat, masks.shape)
 
 
 def test_wrapper_refuses_bad_inputs(cuda):
@@ -133,30 +158,28 @@ def test_match_counts_kernel_equals_plain(cuda, plen):
             plen, n, length, n_pat)
 
 
-@pytest.mark.parametrize("plen", [8, 18, 20, 32, 63])
+@pytest.mark.parametrize("plen", EDGE_PLENS)
 def test_bitmap_kernel_equals_plain(cuda, plen):
     rng = np.random.default_rng(2000 + plen)
-    for mm in range(5):
-        for term in (0, 1, 4, plen + 1):
-            masks, _, p1h, s1h = _inputs(rng, 23, plen - 3, 700, 300, plen,
-                                         term)
-            tm = torch.from_numpy(masks).to(cuda)
-            planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
-            kw = dict(plen=plen, mm=mm, term=term)
-            # the raw IUPAC masks: R, Y and N are several bases a position
-            before = ms.HIT_WINDOW_BITMAP_LAUNCHES
-            got = ms.hit_window_bitmap_kernel(tm, planes, sfx, **kw)
-            assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
-            want = ms.hit_window_bitmap_reference(tm, planes, sfx, **kw)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (plen, mm, term)
-            # pure masks: the hit codes' any over the patterns
-            got = ms.hit_window_bitmap_kernel(ms.pure_masks(tm), planes, sfx,
-                                              **kw)
-            want = ms.hit_codes_reference(tm, planes, sfx, **kw) > 0
-            torch.cuda.synchronize()
-            assert torch.equal(got, want.any(dim=2).to(torch.int8)), (
-                plen, mm, term)
+    for mm, term, n_pat, lo, hi in edge_grid(plen):
+        masks, _, p1h, s1h = edge_inputs(rng, plen, term, n_pat, lo, hi)
+        tm = torch.from_numpy(masks).to(cuda)
+        planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
+        kw = dict(plen=plen, mm=mm, term=term)
+        # the raw IUPAC masks: R, Y and N are several bases a position
+        before = ms.HIT_WINDOW_BITMAP_LAUNCHES
+        got = ms.hit_window_bitmap_kernel(tm, planes, sfx, **kw)
+        assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
+        want = ms.hit_window_bitmap_reference(tm, planes, sfx, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (plen, mm, term, n_pat, masks.shape)
+        # pure masks: the hit codes' any over the patterns
+        got = ms.hit_window_bitmap_kernel(ms.pure_masks(tm), planes, sfx,
+                                          **kw)
+        want = ms.hit_codes_reference(tm, planes, sfx, **kw) > 0
+        torch.cuda.synchronize()
+        assert torch.equal(got, want.any(dim=2).to(torch.int8)), (
+            plen, mm, term, n_pat, masks.shape)
 
 
 def test_new_wrappers_refuse_bad_inputs(cuda):

@@ -212,6 +212,33 @@ def test_hit_codes_fuzz_equals_pallas(mm, term):
     assert np.array_equal(_port_codes(seqs, p1h, s1h, mm, term), want)
 
 
+@pytest.mark.parametrize("plen,mm", [(33, 2), (33, 33), (33, 34), (63, 1),
+                                     (63, 63)])
+def test_hit_codes_long_patterns_and_large_mm(plen, mm):
+    """The tile edges of the tensor-core kernel: K = 4 * plen off its
+    32-byte k-steps (plen 33 and 63) and mm at or past plen, where every
+    pair is a candidate and zero (padding) pattern rows hit when term is 0:
+    the plain version equals hit_codes_conv and the Pallas kernel."""
+    rng = np.random.default_rng(500 + plen + mm)
+    seqs = _rand_seqs(rng, 5, plen - 2, plen + 90, letters="ACGTacgtNRY-")
+    seqs[0] += "ACGT" * plen
+    pats = _planted(rng, seqs, 11, plen)
+    pats[-1] = "N" * plen
+    t1h, _ = jms.encode_targets(seqs)
+    for term in (0, 3, plen + 1):
+        p1h = jms.encode_primers(pats)
+        p1h, s1h = _pad8(p1h, _suffix(p1h, term))
+        conv = np.asarray(jms.hit_codes_conv(t1h, p1h, s1h, mm=mm,
+                                             term=term))
+        pallas = np.asarray(jms.hit_codes_pallas(t1h, p1h, s1h, mm=mm,
+                                                 term=term, interpret=True))
+        got = _port_codes(seqs, p1h, s1h, mm, term)
+        assert np.array_equal(got, conv), term
+        assert np.array_equal(got, pallas), term
+        if mm >= plen and term == 0:
+            assert (got[:, :, -1] == plen + 1).any()   # zero rows hit
+
+
 def test_hit_codes_rows_shorter_than_pattern():
     p1h = tms.encode_primers(["ACGTACGTAC"])
     got = _port_codes(["ACGT", "AC"], p1h, _suffix(p1h, 2), 1, 2)
