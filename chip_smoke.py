@@ -37,7 +37,19 @@ the final line):
    primers (the first DIMER_PRIMERS of them), equal to each other and to
    verify_against_host on a seeded sample; the match-count kernel timed at
    the fused path's first bucket;
-9. the kernels line.
+9. `run` again on the same corpus with device Stage A (--stage-a device)
+   and the device Gotoh (align_backend: centerstar-device), into phase 4's
+   results path: every output file byte-identical to phase 4's (but
+   pipeline_metrics.json and logs), Stage A and the align DP served by the
+   card; both runs' stage seconds;
+10. the device torch ops on the largest cluster of that run, each equal
+   to its counterpart and timed: design_stats_blocks on the card vs the
+   CPU (and the cluster's design with host vs device Stage A);
+   align_ops_batch_device vs native.gotoh_ops_batch and
+   refine_pass_device vs native.refine_realign on its members with seeded
+   indels (one 512-member Gotoh block timed); CUDA launches and device
+   busy time of one block each (torch.profiler), peak device memory;
+11. the kernels line.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -45,6 +57,7 @@ CUDA device is available or the package is not beside this script.
 """
 
 import argparse
+import filecmp
 import glob
 import json
 import os
@@ -938,6 +951,289 @@ def measure_counts(ms, dimer, lay, dev):
     return out
 
 
+def tree_diff(a, b):
+    """The first relative path whose presence or bytes differ between the
+    trees a and b (pipeline_metrics.json and *.log left out), else None."""
+    def files(root):
+        out = set()
+        for d, _, names in os.walk(root):
+            for n in names:
+                if n != "pipeline_metrics.json" and not n.endswith(".log"):
+                    out.add(os.path.relpath(os.path.join(d, n), root))
+        return out
+    fa, fb = files(a), files(b)
+    if fa != fb:
+        return sorted(fa ^ fb)[0]
+    for rel in sorted(fa):
+        if not filecmp.cmp(os.path.join(a, rel), os.path.join(b, rel),
+                           shallow=False):
+            return rel
+    return None
+
+
+def phase_device_run(args, report, work, res):
+    """`run` with device Stage A and the device Gotoh into phase 4's path
+    (some outputs embed it), phase 4's tree moved aside first."""
+    host_res = res + "_host"
+    os.rename(res, host_res)
+    cfg = os.path.join(work, "device_align.yaml")
+    with open(cfg, "w") as f:
+        f.write("align_backend: centerstar-device\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    nproc = os.cpu_count() or 1
+    cmd = [sys.executable, "-m", "multiprime_tpu_torch.cli.main", "run",
+           "-c", cfg, "-i", os.path.join(work, "scale21k.fa"), "-r", res,
+           "--device", DEVICE, "--pcr-products", "summary", "--nproc",
+           str(nproc), "--stage-a", "device"]
+    log_path = os.path.join(work, "run_device.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        rc = subprocess.run(cmd, cwd=HERE, env=env, stdout=log,
+                            stderr=subprocess.STDOUT).returncode
+    wall = time.time() - t0
+    if rc != 0:
+        with open(log_path) as log:
+            fail("device run exited %d:\n%s" % (rc, log.read()[-4000:]))
+    with open(os.path.join(res, "pipeline_metrics.json")) as f:
+        metrics = json.load(f)
+    backends = metrics["backends"]
+    stage_a, align = backends["stage_a_served"], backends["align_served"]
+    say("phase 9 device run: %.1f s wall, nproc=%d, device=%s, Stage A "
+        "served %s, align served %s, hit_codes launches=%d"
+        % (wall, nproc, backends.get("device_name"), json.dumps(stage_a),
+           json.dumps(align), backends.get("hit_codes_launches", 0)))
+    if set(stage_a) != {"device"} or set(align) - {"device", "none"} \
+            or align.get("device", 0) <= 0:
+        fail("the device run's Stage A or align DP did not run on the card")
+    diff = tree_diff(host_res, res)
+    if diff is not None:
+        fail("device run output %s differs from phase 4's host run" % diff)
+    n_files = sum(len(names) for _, _, names in os.walk(res))
+    say("phase 9 device run tree == host run tree byte for byte (%d files)"
+        % n_files)
+    host_t = report["run"]["timings_s"]
+    dev_t = metrics["timings_s"]
+    say("phase 9 stage seconds (align/design/pair summed over workers), "
+        "host run | device run:")
+    for stage in sorted(set(host_t) | set(dev_t)):
+        say("  %-16s %10s | %s" % (stage, host_t.get(stage), dev_t.get(stage)))
+    report["device_run"] = {"wall_s": wall, "nproc": nproc,
+                            "timings_s": dev_t, "stage_a_served": stage_a,
+                            "align_served": align, "files": n_files,
+                            "host_wall_s": report["run"]["wall_s"],
+                            "host_timings_s": host_t}
+    shutil.rmtree(host_res, ignore_errors=True)
+
+
+def device_profile(fn):
+    """(CUDA activities launched, device busy ms) of one fn() call from
+    torch.profiler, or None where the profiler gives no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]
+    except (RuntimeError, AttributeError) as e:
+        say("  torch.profiler gave no device events: %s" % e)
+        return None
+    if not events:
+        return None
+    busy_us = sum(e.time_range.end - e.time_range.start for e in events)
+    return len(events), busy_us / 1e3
+
+
+def timed(fn, reps=1):
+    """(result, mean host-clock ms, peak device MiB) of fn() after one
+    warm-up call, synchronised."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    return out, ms, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def with_indels(rng, seq):
+    """seq with 0-3 seeded indels of 1-12 bases (deletions, or insertions
+    of random bases)."""
+    s = list(seq)
+    for _ in range(int(rng.integers(0, 4))):
+        n = int(rng.integers(1, 13))
+        at = int(rng.integers(0, len(s) - n))
+        if rng.random() < 0.5:
+            del s[at:at + n]
+        else:
+            s[at:at] = list(rng.choice(list("ACGT"), size=n))
+    return "".join(s)
+
+
+def phase_device_ops(args, report, res):
+    """The device torch ops of Stage A and the DPs on the largest cluster of
+    the device run, each held to its counterpart and timed."""
+    import torch
+    from multiprime_tpu_torch import native
+    from multiprime_tpu_torch.align import centerstar, refine
+    from multiprime_tpu_torch.align import device as adev
+    from multiprime_tpu_torch.models import mcdpd
+    from multiprime_tpu_torch.ops import design_scan
+    from multiprime_tpu_torch.utils import iupac
+    from multiprime_tpu_torch.validate import scan as vscan
+    dev = torch.device(DEVICE)
+    with open(os.path.join(res, "cluster.txt")) as f:
+        sizes = [(int(n), name) for name, n in
+                 (line.split("\t") for line in f.read().splitlines()[1:])]
+    params = mcdpd.DesignParams(coverage=0.7, min_product=150,
+                                coordinate="2,3,-1")
+    eng = mcdpd.DesignEngine(params)
+    # Stage-A blocks of the whole run: ceil(W / 512) per designed cluster
+    design_blocks = gotoh_blocks = 0
+    for n, name in sizes:
+        _, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
+                                                name + ".tmsa"))
+        try:
+            start, stop = eng.usable_span(chars)
+        except ValueError:
+            continue
+        design_blocks += -(-max(stop - 18 - start, 0) // 512)
+        if chars.shape[0] > 1:
+            gotoh_blocks += -(-(chars.shape[0] - 1) // 512)
+    _, name = max(sizes)
+    ids, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
+                                              name + ".tmsa"))
+    start, stop = eng.usable_span(chars)
+    positions = np.arange(start, stop - 18)
+    masks = iupac.bytes_to_masks(chars)
+    out = {"cluster": name, "design_blocks_per_run": design_blocks,
+           "gotoh_blocks_per_run": gotoh_blocks}
+
+    def stage_a(device):
+        return list(design_scan.design_stats_blocks(
+            masks, positions, plen=18, variation=1, device=device))
+    got, dev_ms, peak = timed(lambda: stage_a(dev), reps=3)
+    t0 = time.perf_counter()
+    want = stage_a("cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if len(got) != len(want):
+        fail("design_stats_blocks gave %d blocks on the card, %d on the CPU"
+             % (len(got), len(want)))
+    for (gp, gs), (wp, ws) in zip(got, want):
+        for key in ws:
+            if not (np.array_equal(gp, wp) and gs[key].dtype == ws[key].dtype
+                    and np.array_equal(gs[key], ws[key])):
+                fail("design_stats_blocks %s differs between the card and "
+                     "the CPU on %s" % (key, name))
+    prof = device_profile(lambda: list(design_scan.design_stats_blocks(
+        masks, positions[:512], plen=18, variation=1, device=dev)))
+    walls = {}
+    for backend in ("host", "device"):
+        e = mcdpd.DesignEngine(mcdpd.DesignParams(
+            coverage=0.7, min_product=150, coordinate="2,3,-1",
+            stage_a=backend, device=dev))
+        t0 = time.perf_counter()
+        rows = e.design(ids, chars)
+        walls[backend] = time.perf_counter() - t0
+        if backend == "host":
+            host_rows = [(r.position, r.primer, r.coverage) for r in rows]
+        elif [(r.position, r.primer, r.coverage) for r in rows] != host_rows:
+            fail("design rows of %s differ between host and device Stage A"
+                 % name)
+    nb = len(got)
+    out["design_stats_blocks"] = {
+        "N": int(masks.shape[0]), "W": len(positions), "blocks": nb,
+        "ms_per_block": dev_ms / nb, "cpu_torch_ms_per_block": cpu_ms / nb,
+        "peak_mib": peak, "profile_one_block": prof,
+        "design_wall_s": walls}
+    say("phase 10 design_stats_blocks on %s (N=%d, W=%d, %d blocks of 512): "
+        "card == CPU; %.3f ms a block on the card, %.1f ms on the CPU; peak "
+        "%.1f MiB; one block: %s (launches, device busy ms); design wall "
+        "host Stage A %.2f s, device Stage A %.2f s, rows equal"
+        % (name, masks.shape[0], len(positions), nb, dev_ms / nb,
+           cpu_ms / nb, peak, prof, walls["host"], walls["device"]))
+
+    # the center-star DP: the run's members (the sampled .tfa) against
+    # native, then one block of 512 members of the whole cluster timed; the
+    # corpus has substitutions only, so each member gets 0-3 seeded indels
+    # of 1-12 bases, which the affine states and the refine moves need
+    rng = np.random.default_rng(args.seed + 4)
+    _, seqs = vscan.parse_fasta(os.path.join(res, "Clusters_fa",
+                                             name + ".tfa"))
+    seqs = [with_indels(rng, s) for s in seqs]
+    codes = [centerstar._encode(s) for s in seqs]
+    center = centerstar.pick_center(seqs)
+    members = [codes[m] for m in range(len(seqs)) if m != center]
+    got = adev.align_ops_batch_device(codes[center], members,
+                                      as_codes=True, device=dev)
+    nat = native.gotoh_ops_batch(codes[center], members)
+    if nat is None:
+        fail("native.gotoh_ops_batch is unavailable")
+    s_min = min(got.shape[1], nat.shape[1])
+    if not (np.array_equal(got[:, :s_min], nat[:, :s_min])
+            and (got[:, s_min:] == 3).all() and (nat[:, s_min:] == 3).all()):
+        fail("align_ops_batch_device differs from native.gotoh_ops_batch on "
+             "%s" % name)
+    _, all_seqs = vscan.parse_fasta(os.path.join(res, "Clusters_fa",
+                                                 name + ".fa"))
+    block = [centerstar._encode(with_indels(rng, s)) for s in all_seqs[:512]]
+    c = codes[center]
+    _, gotoh_ms, gotoh_peak = timed(lambda: adev.align_ops_batch_device(
+        c, block, as_codes=True, device=dev))
+    t0 = time.perf_counter()
+    native.gotoh_ops_batch(c, block)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(lambda: adev.align_ops_batch_device(
+        c, block, as_codes=True, device=dev))
+    lbs = [len(b) for b in block]
+    out["align_ops_batch_device"] = {
+        "members_checked": len(members), "la": len(c), "M": len(block),
+        "lb_max": max(lbs), "ms_per_block": gotoh_ms,
+        "native_ms_per_block": native_ms, "peak_mib": gotoh_peak,
+        "profile_one_block": prof}
+    say("phase 10 align_ops_batch_device: %d members == native; one block "
+        "la=%d M=%d lb_max=%d: %.1f ms on the card, native %.1f ms (%d host "
+        "threads); peak %.1f MiB; %s (launches, device busy ms)"
+        % (len(members), len(c), len(block), max(lbs), gotoh_ms, native_ms,
+           os.cpu_count() or 1, gotoh_peak, prof))
+
+    # the refine DP: one pass over the cluster's center-star rows
+    rows = centerstar._merge_rows_vec(
+        seqs, center, [m for m in range(len(seqs)) if m != center], got)
+    got_rows, ref_ms, ref_peak = timed(lambda: refine.refine_pass(
+        rows, backend="device", device=dev))
+    t0 = time.perf_counter()
+    nat_rows = refine.refine_pass(rows, backend="native")
+    ref_native_ms = (time.perf_counter() - t0) * 1e3
+    if got_rows != nat_rows:
+        fail("refine_pass_device differs from native.refine_realign on %s"
+             % name)
+    n_blocks = -(-len(rows) // 256)
+    prof = device_profile(lambda: refine.refine_pass(
+        rows[:256], backend="device", device=dev))
+    out["refine_pass_device"] = {
+        "M": len(rows), "C": len(rows[0]), "blocks": n_blocks,
+        "ms_per_block": ref_ms / n_blocks,
+        "native_ms_per_block": ref_native_ms / n_blocks,
+        "peak_mib": ref_peak, "profile_256_rows": prof,
+        "moved_rows": sum(a != b for a, b in zip(got_rows, rows))}
+    say("phase 10 refine_pass_device: M=%d C=%d, %d blocks of 256 == native "
+        "(%d rows moved); %.1f ms a block on the card, native %.1f ms; peak "
+        "%.1f MiB; 256 rows: %s (launches, device busy ms)"
+        % (len(rows), len(rows[0]), n_blocks, out["refine_pass_device"][
+            "moved_rows"], ref_ms / n_blocks, ref_native_ms / n_blocks,
+           ref_peak, prof))
+    say("phase 10 blocks a run: %d Stage-A blocks, %d Gotoh blocks, 0 refine "
+        "blocks (refine_msa takes native)" % (design_blocks, gotoh_blocks))
+    report["device_ops"] = out
+
+
 def kernel_entry(m, name, source, replaces):
     """One kernel's entry of the kernels line, from its measurements."""
     return {"name": name, "route": "cuda",
@@ -981,6 +1277,8 @@ def main():
         phase_new_kernels(args, report)
         phase_bitmap(args, report, res, keys)
         phase_dimer(args, report, primers)
+        phase_device_run(args, report, work, res)
+        phase_device_ops(args, report, res)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["hit_codes"]["launches"] = launches

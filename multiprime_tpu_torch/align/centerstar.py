@@ -27,6 +27,10 @@ from ..cluster.greedy import _encode, kmer_set
 MATCH, MISMATCH, GAP = 2, -1, -2
 GAP_OPEN, GAP_EXT = -4, -1
 
+# the pairwise DP that served this process's last center_star_msa call:
+# "native", "device", "numpy", or "none" for a single sequence
+LAST_BACKEND = None
+
 
 def _pairwise_intersections(sets):
     """Exact |set_i ∩ set_j| matrix for sorted-unique int arrays.
@@ -325,17 +329,20 @@ def align_ops_batch(c, member_codes):
     return out
 
 
-def _use_device_backend(backend, n_members, la):
-    """The device DP (align/device.py) is not ported yet: "device" raises,
-    "auto" resolves to native, then NumPy."""
+def _use_device_backend(backend, n_members, la, device="cuda"):
+    """Whether the device DP (align/device.py) serves this alignment:
+    always for "device"; for "auto" (after native) when ``device`` is a
+    CUDA device and the pointer tensor is large (n_members * la of at
+    least 512 * 1024), the JAX package's size rule; never otherwise."""
     if backend == "device":
-        raise NotImplementedError(
-            "align backend 'device' is not ported to PyTorch yet "
-            "(ROADMAP.md: align/device.py)")
-    return False
+        return True
+    if backend != "auto" or n_members * la < 512 * 1024:
+        return False
+    import torch
+    return torch.device(device).type == "cuda"
 
 
-def center_star_msa(ids, seqs, backend="auto"):
+def center_star_msa(ids, seqs, backend="auto", device="cuda"):
     """-> (ids, aligned rows as equal-length strings).
 
     ``backend``: "numpy" = vectorised host row loop, "native" = the
@@ -343,9 +350,13 @@ def center_star_msa(ids, seqs, backend="auto"):
     jax scan DP + on-device backtrace (align/device.py), "auto" prefers
     native, then the device path per :func:`_use_device_backend`, then
     NumPy.  All produce identical op strings, so the MSA is
-    backend-invariant.
+    backend-invariant.  ``device`` is the torch device of the device DP
+    (default cuda; raises without a GPU).  ``LAST_BACKEND`` names the DP
+    that served the call ("none" for a single sequence).
     """
+    global LAST_BACKEND
     if len(seqs) == 1:
+        LAST_BACKEND = "none"
         return ids, [seqs[0]]
     center = pick_center(seqs)
     codes = [_encode(s) for s in seqs]
@@ -360,18 +371,27 @@ def center_star_msa(ids, seqs, backend="auto"):
         from .. import native
         fmat = native.gotoh_ops_batch(c, [codes[m] for m in member_idx])
         if fmat is not None:
+            LAST_BACKEND = "native"
             rows = _merge_rows_vec(seqs, center, member_idx, fmat)
             assert len({len(r) for r in rows}) == 1
             return ids, rows
-    if not _use_device_backend(backend, len(member_idx), len(c)):
-        # Chunk so the [la, M, lb] pointer tensors stay within ~1 GB.
-        lb_max = max(len(codes[m]) for m in member_idx)
-        chunk = max(1, int(1e9 // max((len(c) + 1) * (lb_max + 1) * 3, 1)))
-        for lo in range(0, len(member_idx), chunk):
-            part = member_idx[lo:lo + chunk]
-            batch = align_ops_batch(c, [codes[m] for m in part])
-            for m, ops in zip(part, batch):
-                per_member[m] = ops
+    if _use_device_backend(backend, len(member_idx), len(c), device):
+        from .device import align_ops_batch_device
+        fmat = align_ops_batch_device(c, [codes[m] for m in member_idx],
+                                      as_codes=True, device=device)
+        LAST_BACKEND = "device"
+        rows = _merge_rows_vec(seqs, center, member_idx, fmat)
+        assert len({len(r) for r in rows}) == 1
+        return ids, rows
+    LAST_BACKEND = "numpy"
+    # Chunk so the [la, M, lb] pointer tensors stay within ~1 GB.
+    lb_max = max(len(codes[m]) for m in member_idx)
+    chunk = max(1, int(1e9 // max((len(c) + 1) * (lb_max + 1) * 3, 1)))
+    for lo in range(0, len(member_idx), chunk):
+        part = member_idx[lo:lo + chunk]
+        batch = align_ops_batch(c, [codes[m] for m in part])
+        for m, ops in zip(part, batch):
+            per_member[m] = ops
     fmat = _ops_to_code_matrix([per_member[m] for m in member_idx])
     rows = _merge_rows_vec(seqs, center, member_idx, fmat)
     assert len({len(r) for r in rows}) == 1

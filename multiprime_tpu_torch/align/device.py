@@ -1,0 +1,267 @@
+"""Device-side batched Gotoh alignment for the center-star MSA, and the
+profile-realignment DP of ``refine``.
+
+PyTorch port of multiprime_tpu/align/device.py: torch ops on an explicit
+device (the JAX module is XLA code, ``lax.scan`` and ``lax.cummax``, with
+no Pallas kernel).  The pointer tensors stay on the device and the
+back-traces run there too, so only the op codes (``[M, la+lb] uint8``) or
+the placed columns cross to the host.  Results equal the NumPy and native
+DPs: same scores, same tie-breaking.
+
+* ``align_ops_batch_device``: the DP is a Python loop over center rows,
+  each step ~25 vector ops on ``[M, lb+1]`` int32 lanes; the within-row
+  affine-E dependency folds into ``torch.cummax`` like the NumPy prefix
+  max.  The trace is a loop of the same kind.
+* ``refine_pass_device``: a loop over MSA columns on ``[M, lmax+1]``
+  float32 lanes.  The profile lookup is a ``torch.gather`` (exact) and the
+  host pre-scales every multiply, so each device step is one IEEE add,
+  max or compare and the card rounds as NumPy does.
+
+The JAX module padded rows, columns and members to buckets so that XLA
+compiled few executables; eager torch loops over the true sizes.  Only the
+width of the ``as_codes`` matrix keeps the JAX buckets (rows and columns
+to multiples of 256), so the matrices are equal in shape too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils import link as linkmod
+from .centerstar import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
+
+_NEG = -1 << 28
+_NEGF = float(np.float32(-1e30))
+_PAD_OP = 3
+_OP_CHARS = np.array(["M", "D", "I", ""], dtype=object)
+
+
+def _round_up(x, mult):
+    return ((int(x) + mult - 1) // mult) * mult
+
+
+def _gotoh_block(c, bmat, lbs, dev):
+    """Row DP + back-trace of one member block on ``dev``.
+
+    c: int codes [la] of the center (host); bmat int32 [M, lb] member codes
+    (4 past each end), lbs int32 [M] -> uint8 ops [M, steps] in reverse
+    order, ``_PAD_OP`` once a member's trace is done."""
+    la = len(c)
+    m, lb = bmat.shape
+    jar = torch.arange(lb + 1, dtype=torch.int32, device=dev)
+    valid = jar[None, :] <= lbs[:, None]
+    v_prev = torch.where(valid, GAP_OPEN + GAP_EXT * jar[None, :], _NEG)
+    v_prev[:, 0] = 0
+    f_prev = torch.full((m, lb + 1), _NEG, dtype=torch.int32, device=dev)
+    # substitution scores of each center code: codes 4+ never match
+    subs = [torch.where(bmat == code, MATCH, MISMATCH).to(torch.int32)
+            for code in range(4)]
+    sub_other = torch.full((m, lb), MISMATCH, dtype=torch.int32, device=dev)
+    neg_col = torch.full((m, 1), _NEG, dtype=torch.int32, device=dev)
+    one_col = torch.ones((m, 1), dtype=torch.uint8, device=dev)
+    false_col = torch.zeros((m, 1), dtype=torch.bool, device=dev)
+    e_off = GAP_OPEN - GAP_EXT * jar[None, :]
+    e_back = GAP_EXT * jar[None, 1:]
+    packed = torch.empty((la + 1, m, lb + 1), dtype=torch.uint8, device=dev)
+    row0 = ((jar >= 1).to(torch.uint8) * 2) | ((jar >= 2).to(torch.uint8) * 8)
+    packed[0] = row0[None, :]
+    for i in range(1, la + 1):
+        ci = int(c[i - 1])
+        sub = subs[ci] if 0 <= ci < 4 else sub_other
+        f_ext = f_prev + GAP_EXT
+        f_open = v_prev + (GAP_OPEN + GAP_EXT)
+        f_cur = torch.maximum(f_ext, f_open)
+        fcont = f_ext >= f_open
+        diag = v_prev[:, :-1] + sub
+        vert = torch.cat([f_cur[:, :1], torch.maximum(diag, f_cur[:, 1:])],
+                         dim=1)
+        p = torch.cat([one_col, (diag < f_cur[:, 1:]).to(torch.uint8)],
+                      dim=1)
+        t = vert + e_off
+        run_max = torch.cummax(t[:, :-1], dim=1).values
+        e_cur = torch.cat([neg_col, run_max + e_back], dim=1)
+        econt = torch.cat([false_col, t[:, :-1] < run_max], dim=1)
+        v_prev = torch.where(valid, torch.maximum(vert, e_cur), _NEG)
+        p = torch.where(e_cur > vert, 2, p)
+        packed[i] = (p | (fcont.to(torch.uint8) << 2)
+                     | (econt.to(torch.uint8) << 3))
+        f_prev = torch.where(valid, f_cur, _NEG)
+
+    flat = packed.reshape(-1)
+    base = torch.arange(m, dtype=torch.int64, device=dev) * (lb + 1)
+    row_stride = m * (lb + 1)
+    i = torch.full((m,), la, dtype=torch.int64, device=dev)
+    j = lbs.to(torch.int64)
+    st = torch.zeros((m,), dtype=torch.int64, device=dev)
+    steps = la + (int(lbs.max()) if m else 0)
+    ops = torch.empty((steps, m), dtype=torch.uint8, device=dev)
+    for s in range(steps):
+        done = (i == 0) & (j == 0)
+        pf = flat[i * row_stride + base + j].to(torch.int64)
+        mv = torch.where(
+            i == 0, 2,
+            torch.where(j == 0, 1,
+                        torch.where(st == 1, 1,
+                                    torch.where(st == 2, 2, pf & 3))))
+        fc = (pf >> 2) & 1
+        ec = (pf >> 3) & 1
+        new_st = torch.where(
+            mv == 0, 0,
+            torch.where(mv == 1, fc,
+                        torch.where((i > 0) & (j > 0), 2 * ec, 0)))
+        ops[s] = torch.where(done, _PAD_OP, mv)
+        i = torch.where(done, 0, i - (mv != 2).to(torch.int64))
+        j = torch.where(done, 0, j - (mv != 1).to(torch.int64))
+        st = torch.where(done, 0, new_st)
+    return ops.T
+
+
+def align_ops_batch_device(c, member_codes, member_block=512,
+                           as_codes=False, *, device="cuda"):
+    """Device equivalent of ``centerstar.align_ops_batch``.
+
+    ``c`` and ``member_codes`` are int code arrays (A=0..T=3, other=4+).
+    Returns one op list (['M'|'D'|'I'] strings) per member, identical to
+    the NumPy path; with ``as_codes=True``, instead returns the forward
+    uint8 code matrix [M, S] (0=M, 1=D, 2=I, 3=pad at the end) consumed by
+    ``centerstar._merge_rows_vec`` without per-op Python lists.
+    """
+    dev = linkmod.resolve_device(device)
+    c = np.asarray(c, np.int64)
+    la = len(c)
+    lbs_all = np.array([len(b) for b in member_codes], np.int32)
+    out = [None] * len(member_codes)
+    parts = []
+    la_pad = _round_up(max(la, 1), 256)
+    for lo in range(0, len(member_codes), member_block):
+        part = member_codes[lo:lo + member_block]
+        lbs = lbs_all[lo:lo + member_block]
+        lb = max(int(lbs.max()) if len(lbs) else 1, 1)
+        bmat = np.full((len(part), lb), 4, np.int32)
+        for k, b in enumerate(part):
+            bmat[k, :len(b)] = np.asarray(b, np.int32)
+        ops_rev = _gotoh_block(c, torch.from_numpy(bmat).to(dev),
+                               torch.from_numpy(lbs).to(dev), dev)
+        ops_rev = ops_rev.cpu().numpy()
+        if as_codes:
+            # reverse + left-shift out the pad prefix, all in NumPy; the
+            # width is the JAX trace's, la_pad + lb_pad
+            s_blk = la_pad + _round_up(lb, 256)
+            n_real = (ops_rev != _PAD_OP).sum(axis=1)
+            flipped = np.full((len(part), s_blk), _PAD_OP, np.uint8)
+            flipped[:, s_blk - ops_rev.shape[1]:] = ops_rev[:, ::-1]
+            idx = np.arange(s_blk)[None, :] + (s_blk - n_real)[:, None]
+            fwd = np.take_along_axis(
+                flipped, np.minimum(idx, s_blk - 1), axis=1)
+            fwd[np.arange(s_blk)[None, :] >= n_real[:, None]] = _PAD_OP
+            parts.append(fwd)
+            continue
+        for k in range(len(part)):
+            codes = ops_rev[k]
+            real = codes[codes != _PAD_OP][::-1]
+            out[lo + k] = list(_OP_CHARS[real])
+    if as_codes:
+        smax = max(p.shape[1] for p in parts)
+        fmat = np.full((len(member_codes), smax), _PAD_OP, np.uint8)
+        row = 0
+        for p in parts:
+            fmat[row:row + len(p), :p.shape[1]] = p
+            row += len(p)
+        return fmat
+    return out
+
+
+def _refine_block(res_codes, lens, s4, go_c, ge_c, occ2, dev):
+    """Column DP + trace of one member block on ``dev``.
+
+    res_codes int64 [M, lmax] (codes 0..5), lens int64 [M]; s4 [C, M, 6]
+    = 4*f6, go_c/ge_c/occ2 [C, M] = GAP_OPEN*occ, GAP_EXT*occ, 2*occ (all
+    float32, rounded on the host) -> int64 [M, C] placed columns (-1 = no
+    placement), last residue first."""
+    c, m = go_c.shape
+    lmax = res_codes.shape[1]
+    iar = torch.arange(lmax + 1, device=dev)
+    active = iar[None, :] <= lens[:, None]
+    v_prev = torch.where(iar[None, :] == 0, 0.0, _NEGF).expand(m, lmax + 1)
+    g_prev = torch.full((m, lmax + 1), _NEGF, dtype=torch.float32,
+                        device=dev)
+    best_v = torch.full((m,), _NEGF, dtype=torch.float32, device=dev)
+    best_j = torch.zeros((m,), dtype=torch.int64, device=dev)
+    neg_col = torch.full((m, 1), _NEGF, dtype=torch.float32, device=dev)
+    ptr = torch.empty((c, m, lmax + 1), dtype=torch.uint8, device=dev)
+    for jc in range(c):
+        # s_col = 2*(2*f6_gather - occ): one rounding, as in NumPy
+        s_col = torch.gather(s4[jc], 1, res_codes) - occ2[jc][:, None]
+        open_cand = v_prev + go_c[jc][:, None]
+        gcont = g_prev >= open_cand
+        g_cur = torch.maximum(g_prev, open_cand) + ge_c[jc][:, None]
+        diag = torch.cat([neg_col, v_prev[:, :-1] + s_col], dim=1)
+        take_skip = g_cur > diag
+        v_cur = torch.where(take_skip, g_cur, diag)
+        v_cur[:, 0] = 0.0
+        v_prev = torch.where(active, v_cur, _NEGF)
+        g_prev = torch.where(active, g_cur, _NEGF)
+        ptr[jc] = take_skip.to(torch.uint8) | (gcont.to(torch.uint8) << 1)
+        v_end = torch.gather(v_prev, 1, lens[:, None])[:, 0]
+        upd = v_end > best_v
+        best_v = torch.where(upd, v_end, best_v)
+        best_j = torch.where(upd, jc + 1, best_j)
+
+    flat = ptr.reshape(-1)
+    base = torch.arange(m, dtype=torch.int64, device=dev) * (lmax + 1)
+    col_stride = m * (lmax + 1)
+    i, j = lens.clone(), best_j
+    skip = torch.zeros((m,), dtype=torch.bool, device=dev)
+    cols = torch.empty((c, m), dtype=torch.int64, device=dev)
+    for s in range(c):
+        done = i == 0
+        p = flat[(j.clamp(min=1) - 1) * col_stride + base + i]
+        take = (j > i) & (skip | ((p & 1) == 1))
+        place = ~done & ~take
+        cols[s] = torch.where(place, j - 1, -1)
+        skip = ~done & take & ((p & 2) == 2)
+        i = torch.where(done | take, i, i - 1)
+        j = torch.where(done, j, j - 1)
+    return cols.T
+
+
+def refine_pass_device(res_chars, res_codes, lens, f6, occ, c,
+                       go=-4.0, ge=-1.0, member_block=256, *, device="cuda"):
+    """Device twin of refine._realign_chunk: returns new row byte-strings.
+
+    f6 [M, C, 6], occ [M, C] float32 (self-excluded profile), res_codes
+    [M, lmax] int codes, lens [M].  The host pre-scales every multiply so
+    the device DP is add/max-only and rounds identically to the NumPy path.
+    """
+    dev = linkmod.resolve_device(device)
+    m = len(res_chars)
+    lmax = res_codes.shape[1]
+    rows = []
+    for lo in range(0, m, member_block):
+        sel = slice(lo, min(lo + member_block, m))
+        mc = sel.stop - sel.start
+        s4 = (4.0 * f6[sel]).astype(np.float32).transpose(1, 0, 2)
+        occ_t = occ[sel].astype(np.float32).T
+        go_c = (np.float32(go) * occ_t).astype(np.float32)
+        ge_c = (np.float32(ge) * occ_t).astype(np.float32)
+        occ2 = (np.float32(2.0) * occ_t).astype(np.float32)
+        blk = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+               for x in (res_codes[sel].astype(np.int64),
+                         lens[sel].astype(np.int64), s4, go_c, ge_c, occ2)]
+        cols = _refine_block(*blk, dev).cpu().numpy()
+        # Vectorised placement: the trace emits residues last-to-first, so
+        # the r-th placed column of member k carries chars[lens[k]-1-r].
+        chars_mat = np.zeros((mc, lmax if lmax else 1), np.uint8)
+        for k in range(mc):
+            b = res_chars[lo + k]
+            chars_mat[k, :len(b)] = np.frombuffer(b, np.uint8)
+        placed_mask = cols >= 0
+        rank = np.cumsum(placed_mask, axis=1, dtype=np.int64) - 1
+        rk, sk = np.nonzero(placed_mask)
+        res_idx = lens[lo + rk] - 1 - rank[rk, sk]
+        out_mat = np.full((mc, c), ord("-"), np.uint8)
+        out_mat[rk, cols[rk, sk]] = chars_mat[rk, res_idx]
+        row_bytes = out_mat.tobytes()
+        rows.extend(row_bytes[k * c:(k + 1) * c] for k in range(mc))
+    return rows

@@ -141,12 +141,14 @@ def _realign_chunk(res_chars, res_codes, lens, f6, occ):
     return rows
 
 
-def refine_pass(rows, chunk_bytes=1 << 30, backend="auto"):
+def refine_pass(rows, chunk_bytes=1 << 30, backend="auto", device="cuda"):
     """One profile-realignment pass over every member.  Returns new rows
     (same residues per row, possibly shifted between columns).
 
     backend: "auto" prefers the native threaded DP (seqlib.refine_realign,
-    identical float32 op order), falling back to the vectorised NumPy path.
+    identical float32 op order), falling back to the vectorised NumPy path;
+    "device" runs the torch DP on ``device`` (default cuda; raises without
+    a GPU).
     """
     m = len(rows)
     if m < 2:
@@ -161,7 +163,7 @@ def refine_pass(rows, chunk_bytes=1 << 30, backend="auto"):
     # 500x1894 golden cluster).  "device" stays as an explicit opt-in for
     # locally-attached chips with the MSA already resident.
     if backend == "device":
-        return _refine_pass_device(rows, codes, int_counts)
+        return _refine_pass_device(rows, codes, int_counts, device)
     if backend in ("auto", "native"):
         from .. import native
         raw = native.refine_realign("".join(rows).encode("ascii"), codes,
@@ -200,12 +202,38 @@ def refine_pass(rows, chunk_bytes=1 << 30, backend="auto"):
     return new_rows
 
 
-def _refine_pass_device(rows, codes, int_counts):
-    """The device refine DP (align/device.refine_pass_device) is not ported
-    yet; "auto" resolves to native, then NumPy."""
-    raise NotImplementedError(
-        "refine backend 'device' is not ported to PyTorch yet "
-        "(ROADMAP.md: align/device.py)")
+def _refine_pass_device(rows, codes, int_counts, device="cuda"):
+    """One pass on ``device`` (align/device.refine_pass_device); identical
+    f32 rounding to the NumPy chunk DP (all multiplies pre-scaled on host)."""
+    from .device import refine_pass_device
+
+    m, c = codes.shape
+    counts = int_counts.astype(np.float32)
+    denom = max(m - 1, 1)
+    # Vectorised residue compaction: scatter non-gap chars/codes left.
+    arr = np.frombuffer("".join(rows).encode("ascii"),
+                        np.uint8).reshape(m, c)
+    mask = codes != _GAP
+    lens = mask.sum(axis=1)
+    lmax = int(lens.max())
+    pos = np.cumsum(mask, axis=1, dtype=np.int64) - 1
+    rr, cc = np.nonzero(mask)
+    chars_mat = np.zeros((m, lmax), np.uint8)
+    chars_mat[rr, pos[rr, cc]] = arr[rr, cc]
+    res_codes = np.full((m, lmax), _OTHER, np.int8)
+    res_codes[rr, pos[rr, cc]] = codes[rr, cc]
+    blob = chars_mat.tobytes()
+    res_chars = [blob[mi * lmax:mi * lmax + lens[mi]] for mi in range(m)]
+    onehot = np.eye(6, dtype=np.float32)
+    self_oh = onehot[codes.astype(np.int64)]          # [m, C, 6]
+    cnt_ex = counts[None, :, :] - self_oh
+    f6 = cnt_ex / denom
+    f6[:, :, 4:] = 0.0
+    occ = 1.0 - cnt_ex[:, :, 4] / denom
+    out = refine_pass_device(res_chars, res_codes.astype(np.int32),
+                             lens.astype(np.int32), f6, occ, c,
+                             go=GAP_OPEN, ge=GAP_EXT, device=device)
+    return [r.decode("ascii") for r in out]
 
 
 def drop_gap_columns(rows):

@@ -1,17 +1,20 @@
-# Port of multiprime_tpu/cli/main.py: the `run` and `scan` subcommands.
+# Port of multiprime_tpu/cli/main.py: the run, design, pair and scan
+# subcommands.
 """CLI of the PyTorch/CUDA port of the multiplex primer design framework.
 
-  python -m multiprime_tpu_torch.cli.main run   full pipeline from a fasta
-  python -m multiprime_tpu_torch.cli.main scan  mismatch coverage validation
+  python -m multiprime_tpu_torch.cli.main run     full pipeline from a fasta
+  python -m multiprime_tpu_torch.cli.main design  MC-DPD/MC-EDPD window design
+  python -m multiprime_tpu_torch.cli.main pair    primer-pair selection
+  python -m multiprime_tpu_torch.cli.main scan    mismatch coverage validation
 
-Both take --device {cuda,cpu} (default cuda; asking for cuda without a GPU
-is an error).  The JAX package's other subcommands are not ported yet
-(ROADMAP.md); they exit with status 2.
+run, design and scan take --device {cuda,cpu} (default cuda; asking for
+cuda without a GPU is an error); pair is host-only.  The JAX package's
+other subcommands are not ported yet (ROADMAP.md); they exit with status 2.
 """
 
 import sys
 
-_NOT_PORTED = ("design", "pair", "solve", "findimer", "pcr", "tm",
+_NOT_PORTED = ("solve", "findimer", "pcr", "tm",
                "tm-primer3", "dg", "expand", "kmer-filter", "seq-format",
                "ont", "update", "specificity", "roc", "wrc", "run-dege",
                "build-native", "nondimer-filter", "onestep")
@@ -25,6 +28,12 @@ def main(argv=None):
     cmd, rest = argv[0], argv[1:]
     if cmd == "run":
         return _run(rest)
+    if cmd == "design":
+        from . import design
+        return design.main(rest)
+    if cmd == "pair":
+        from . import pair
+        return pair.main(rest) or 0
     if cmd == "scan":
         return _scan(rest)
     if cmd in _NOT_PORTED:
@@ -37,8 +46,9 @@ def main(argv=None):
 
 def _device_flag(p, default="cuda"):
     p.add_argument("--device", choices=["cuda", "cpu"], default=default,
-                   help="torch device of the coverage scan (default cuda; "
-                        "cpu runs the kernels' plain PyTorch versions)")
+                   help="torch device of the coverage scan and the device "
+                        "Stage A and align backends (default cuda; cpu runs "
+                        "the kernels' plain PyTorch versions)")
 
 
 def _run(argv):
@@ -64,8 +74,9 @@ def _run(argv):
                    help="number of GPUs (default 1; more is not ported yet)")
     p.add_argument("--stage-a", choices=["host", "device", "auto"],
                    dest="stage_a",
-                   help="design Stage-A backend (default: host/config; "
-                        "device and auto are not ported yet)")
+                   help="design Stage-A backend (default: host/config): "
+                        "device runs it as torch ops on --device, auto "
+                        "takes the device")
     p.add_argument("--cluster-shard", dest="cluster_shard", metavar="i/P",
                    help="run only every P-th cluster of the fan-out "
                         "(multi-host: each host runs its shard against a "

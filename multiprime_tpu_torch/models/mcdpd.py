@@ -188,21 +188,22 @@ class DesignParams:
     nproc: int = 1
     algo: str = "v20"
     # Stage-A backend: "host" (bit-exact NumPy), "device" (the batched
-    # JAX/TPU kernel ops/design_scan.design_stats_full; freq/NN/Viterbi for
-    # all windows in one fused call, host Stage B consumes them), or "auto"
-    # — a measured crossover: host Stage-A rate vs probed-link transfer of
-    # the patched-window tensor (utils/link.py, DESIGN.md "Backend
-    # crossover model"; MPTPU_FORCE_BACKEND overrides).  Outputs are
-    # identical either way (tests/test_design_device.py).
+    # torch ops of ops/design_scan.design_stats_blocks on ``device``;
+    # freq/NN/Viterbi for a block of windows at once, host Stage B consumes
+    # them), or "auto" (resolve_stage_a).  Outputs are identical either way
+    # (tests/test_torch_design_scan.py).
     stage_a: str = "host"
+    # torch device of device Stage A: "cuda" (raises without a GPU) or "cpu"
+    device: str = "cuda"
 
 
 def resolve_stage_a(n_seqs, n_windows, plen):
-    """Stage A on the GPU (ops/design_scan) is not ported yet, so there is
-    no crossover to resolve: "auto" raises like "device"."""
-    raise NotImplementedError(
-        "design stage_a 'auto' is not ported to PyTorch yet "
-        "(ROADMAP.md: design Stage A); use stage_a='host'")
+    """The Stage-A backend of "auto": MPTPU_FORCE_BACKEND when set, else
+    the device.  The JAX package weighed a TPU link model here; the H100
+    crossover is not measured yet (ROADMAP.md), so "auto" takes the device.
+    """
+    from ..utils import link as linkmod
+    return linkmod.forced_backend() or "device"
 
 
 def _build_covered_table(rounded):
@@ -392,6 +393,9 @@ class DesignEngine:
     def __init__(self, params: DesignParams):
         self.p = params
         self._uniform_bits = None    # (total, cBit, tBit) fast-path cache
+        # the Stage-A backend that served the last design() ("host" or
+        # "device"); None until a design reaches Stage A
+        self.stage_a_used = None
         plen = params.primer_length
         if params.algo in ("v20", "v16", "v2"):
             self.y_strict, self.y_strict_r = self._forbidden_sets()
@@ -635,6 +639,7 @@ class DesignEngine:
         stage_a = self.p.stage_a
         if stage_a == "auto":
             stage_a = resolve_stage_a(n, len(positions), plen)
+        self.stage_a_used = stage_a
         if stage_a == "device":
             return self._design_device(chars, positions, seq_ids, n,
                                        threshold, progress)
@@ -739,10 +744,38 @@ class DesignEngine:
 
     def _design_device(self, chars, positions, seq_ids, n, threshold,
                        progress=None):
-        """Stage A on device (ops/design_scan) is not ported yet."""
-        raise NotImplementedError(
-            "design stage_a 'device' is not ported to PyTorch yet "
-            "(ROADMAP.md: design Stage A); use stage_a='host'")
+        """Stage A on ``self.p.device`` (ops/design_scan): patched windows,
+        freq/NN tensors and Viterbi paths for all windows in blocks; Stage B
+        consumes them window by window.  Bit-identical to the host path
+        (the device integers are exact; tests/test_torch_design_scan.py).
+        """
+        from ..ops import design_scan
+        masks = iupac.bytes_to_masks(chars)
+        done = 0
+        results = []
+        blocks = design_scan.design_stats_blocks(
+            masks, positions, plen=self.p.primer_length,
+            variation=self.p.variation, device=self.p.device)
+        for pos_block, stats in blocks:
+            win_chars = iupac._MASK_TO_ASCII[stats["win"] & 15]  # [N, W, plen]
+            gap_blk = (win_chars == ord("-")).sum(axis=2)
+            imp_blk = _IMPURE_TABLE[win_chars].any(axis=2)
+            same_blk = (win_chars == win_chars[:1]).all(axis=(0, 2))
+            for wi, position in enumerate(pos_block):
+                pre = (stats["freq"][wi].T.astype(np.int64),
+                       stats["nn"][wi].astype(np.int64),
+                       stats["viterbi"][wi].astype(np.int64))
+                res = self._design_window(int(position), win_chars[:, wi, :],
+                                          seq_ids, n, threshold, pre=pre,
+                                          gates=(gap_blk[:, wi],
+                                                 imp_blk[:, wi],
+                                                 bool(same_blk[wi])))
+                if res is not None:
+                    results.append(res)
+            done += len(pos_block)
+            if progress:
+                progress(done, len(positions))
+        return results
 
     def _design_parallel(self, extractor, positions, seq_ids, n, threshold):
         import concurrent.futures as cf

@@ -35,10 +35,12 @@ import numpy as np
 
 
 def _set_native_threads(n):
-    # fork-pool worker initializer: divide the machine's cores between
-    # cluster workers so native threaded kernels (gotoh_ops_batch,
-    # refine_realign) never oversubscribe W workers x 16 threads.
+    # pool worker initializer: divide the machine's cores between cluster
+    # workers so native threaded kernels (gotoh_ops_batch, refine_realign)
+    # and torch's CPU ops never oversubscribe W workers x all cores.
+    import torch
     os.environ["MPTPU_NATIVE_THREADS"] = str(n)
+    torch.set_num_threads(n)
 
 
 @dataclass
@@ -210,6 +212,9 @@ class Pipeline:
         from ..utils import link as linkmod
         self.cfg = cfg
         self.device = linkmod.resolve_device(cfg.device)
+        # clusters served by each Stage-A and align backend: {"stage_a":
+        # {"device": n, ...}, "align": {"native": n, "none": n, ...}}
+        self.served = {}
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
                                         cfg.virus_name + ".fa")
@@ -378,7 +383,8 @@ class Pipeline:
 
     def _backends(self):
         """Which engines actually served this run: the torch device, the
-        scan backend and the hit-code kernel's launch count."""
+        clusters each Stage-A and align backend served, the scan backend
+        and the hit-code kernel's launch count."""
         from .. import native
         from ..ops import mismatch_scan as ms
         from ..utils import link as linkmod
@@ -390,7 +396,9 @@ class Pipeline:
                 "align_backend": cfg.align_backend,
                 "design_backend": cfg.design_backend,
                 "device": str(self.device),
-                "device_name": linkmod.device_name(self.device)}
+                "device_name": linkmod.device_name(self.device),
+                "stage_a_served": self.served.get("stage_a", {}),
+                "align_served": self.served.get("align", {})}
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
         info["hit_codes_launches"] = ms.HIT_CODES_LAUNCHES
@@ -596,9 +604,15 @@ class Pipeline:
             from ..models import mcdpd
             order = sorted(
                 names, key=lambda n: -int(n.rsplit("_", 1)[1]))
-            # fork (cheap, COW) unless CUDA is already initialised in
-            # this process — a CUDA context does not survive fork; spawn then.
-            method = "fork" if mcdpd.fork_safe() else "spawn"
+            # fork (cheap, COW) unless the workers run torch ops or CUDA is
+            # already initialised here; spawn then.  A CUDA context does
+            # not survive fork, and once this process asked
+            # torch.cuda.is_available() a forked child's first CUDA call
+            # raises ("Cannot re-initialize CUDA in forked subprocess";
+            # torch 2.11 on an H100); torch CPU ops in a child forked from
+            # a multi-threaded parent can deadlock.
+            method = ("fork" if mcdpd.fork_safe()
+                      and not self._clusters_use_torch() else "spawn")
             ctx = multiprocessing.get_context(method)
             threads = max(1, (os.cpu_count() or 1) // workers)
             with ctx.Pool(workers, initializer=_set_native_threads,
@@ -615,13 +629,29 @@ class Pipeline:
                 if rep.get(key + "_s"):
                     self.cfg.timings[key] = round(
                         self.cfg.timings.get(key, 0) + rep[key + "_s"], 3)
+            for key, served in rep["served"].items():
+                count = self.served.setdefault(key, {})
+                count[served] = count.get(served, 0) + 1
             self.log.extend(rep["log"])
+
+    def _clusters_use_torch(self):
+        """Whether the per-cluster stages may run torch ops: device or auto
+        Stage A, or the device Gotoh (explicit, or the auto align backend
+        on a GPU without the native library)."""
+        from .. import native
+        cfg = self.cfg
+        return (cfg.stage_a != "host"
+                or cfg.align_backend == "centerstar-device"
+                or (cfg.align_backend == "centerstar"
+                    and self.device.type == "cuda"
+                    and not native.available()))
 
     def _one_cluster(self, name, inner_nproc=1):
         from ..align import centerstar
         from ..models import mcdpd, pairing
         cfg = self.cfg
-        rep = {"align_s": 0.0, "design_s": 0.0, "pair_s": 0.0, "log": []}
+        rep = {"align_s": 0.0, "design_s": 0.0, "pair_s": 0.0, "log": [],
+               "served": {}}
         tfa = self._p("Clusters_fa", name + ".tfa")
         msa_path = self._p("Clusters_msa", name + ".tmsa")
         if not os.path.exists(msa_path):
@@ -636,7 +666,8 @@ class Pipeline:
                 if cfg.align_backend == "centerstar-device"
                 else "numpy"
                 if cfg.align_backend == "centerstar-numpy"
-                else "auto")
+                else "auto", device=self.device)
+            rep["served"]["align"] = centerstar.LAST_BACKEND
             if cfg.msa_refine > 0:
                 from ..align import refine
                 rows = refine.refine_msa(rows, cfg.msa_refine)
@@ -656,7 +687,8 @@ class Pipeline:
                 variation=cfg.variation, entropy_threshold=cfg.entropy,
                 gc=cfg.gc_content, min_product=cfg.product_size[0],
                 coordinate=cfg.coordinate, hairpin_distance=cfg.distance,
-                algo=cfg.algo, nproc=inner_nproc, stage_a=cfg.stage_a)
+                algo=cfg.algo, nproc=inner_nproc, stage_a=cfg.stage_a,
+                device=self.device)
             ids, chars = mcdpd.parse_msa(msa_path)
             eng = mcdpd.DesignEngine(params)
             t0 = time.time()
@@ -665,6 +697,8 @@ class Pipeline:
             except ValueError as e:
                 rep["log"].append(("design:" + name, "skipped: %s" % e, 0))
                 results = []
+            if eng.stage_a_used:
+                rep["served"]["stage_a"] = eng.stage_a_used
             # table now (pairing parses it); sidecars in a forked child
             # overlapped with pairing — they are a pure function of
             # `results`, and a fork (unlike a thread) doesn't timeshare

@@ -1,0 +1,150 @@
+"""The port's device DPs (multiprime_tpu_torch/align/device.py) against the
+JAX package's and the host DPs, on the CPU: equal op strings, equal
+``as_codes`` matrices, equal MSAs and refined rows."""
+
+import numpy as np
+import pytest
+
+from multiprime_tpu.align import centerstar as jcs
+from multiprime_tpu.align import refine as jrefine
+from multiprime_tpu.align.device import align_ops_batch_device as jalign
+from multiprime_tpu_torch import native as tnative
+from multiprime_tpu_torch.align import centerstar as tcs
+from multiprime_tpu_torch.align import device as tdev
+from multiprime_tpu_torch.align import refine as trefine
+
+from .test_align_device import _rand_members
+
+
+def _random_case():
+    """The inputs of tests/test_align_device.py::test_device_ops_match_
+    numpy_random: a 180-base center, 40 edited members, a one-base member
+    and a member longer than the center."""
+    rng = np.random.default_rng(11)
+    c = rng.integers(0, 4, size=180).astype(np.int8)
+    members = _rand_members(rng, c, 40, 50)
+    members.append(rng.integers(0, 4, size=1).astype(np.int8))
+    members.append(rng.integers(0, 4, size=400).astype(np.int8))
+    return c, members
+
+
+def _gap_heavy_case():
+    """The inputs of tests/test_align_device.py::test_device_ops_gap_heavy:
+    long leading and internal deletions, a long insertion."""
+    rng = np.random.default_rng(3)
+    c = rng.integers(0, 4, size=90).astype(np.int8)
+    members = [
+        c[30:],
+        np.concatenate([c[:40], c[60:]]),
+        np.concatenate([c[:50], rng.integers(0, 4, 35).astype(np.int8),
+                        c[50:]]),
+        np.repeat(c, 2)[:150].astype(np.int8),
+    ]
+    return c, members
+
+
+def _other_codes_case():
+    """A center with code 4 (never matches), an empty member and the
+    native test's shapes."""
+    rng = np.random.default_rng(17)
+    c = rng.integers(0, 5, size=210).astype(np.int8)
+    members = _rand_members(rng, c, 30, 60)
+    members += [np.empty(0, np.int8),
+                rng.integers(0, 4, size=460).astype(np.int8), c[80:]]
+    return c, members
+
+
+CASES = {"random": (_random_case, 24), "gap_heavy": (_gap_heavy_case, 512),
+         "other_codes": (_other_codes_case, 7)}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_align_ops_batch_device_equals_jax_and_numpy(case):
+    """Member blocks smaller than M (24 and 7 of 43 and 33 members): op
+    strings equal JAX's device DP and the NumPy row loop; as_codes
+    matrices equal JAX's, width included."""
+    make, block = CASES[case]
+    c, members = make()
+    want = jcs.align_ops_batch(c, members)
+    assert jalign(c, members, member_block=block) == want
+    got = tdev.align_ops_batch_device(c, members, member_block=block,
+                                      device="cpu")
+    assert got == want
+    jcodes = jalign(c, members, member_block=block, as_codes=True)
+    tcodes = tdev.align_ops_batch_device(c, members, member_block=block,
+                                         as_codes=True, device="cpu")
+    assert tcodes.dtype == jcodes.dtype and tcodes.shape == jcodes.shape
+    assert np.array_equal(tcodes, jcodes)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_align_ops_batch_device_equals_native(case):
+    """The native C++ Gotoh (the port's auto default) gives the same code
+    matrix, up to its own pad width."""
+    if not tnative.available():
+        pytest.skip("native toolchain unavailable")
+    c, members = CASES[case][0]()
+    nat = tnative.gotoh_ops_batch(c, members)
+    got = tdev.align_ops_batch_device(c, members, as_codes=True,
+                                      device="cpu")
+    s = min(nat.shape[1], got.shape[1])
+    assert np.array_equal(got[:, :s], nat[:, :s])
+    assert (got[:, s:] == 3).all() and (nat[:, s:] == 3).all()
+
+
+def _family(seed, n, length, edits):
+    rng = np.random.default_rng(seed)
+    base = "".join("ACGT"[i] for i in rng.integers(0, 4, size=length))
+    seqs = []
+    for _ in range(n):
+        b = list(base)
+        for _ in range(int(rng.integers(*edits))):
+            k = int(rng.integers(0, max(len(b), 1)))
+            r = rng.integers(0, 3)
+            if r == 0:
+                b[k % len(b)] = "ACGT"[int(rng.integers(0, 4))]
+            elif r == 1 and len(b) > 5:
+                del b[k % len(b)]
+            else:
+                b.insert(k % (len(b) + 1), "ACGT"[int(rng.integers(0, 4))])
+        seqs.append("".join(b))
+    return [str(i) for i in range(n)], seqs
+
+
+def test_center_star_msa_device_invariance():
+    """The inputs of tests/test_align_device.py::test_center_star_backend_
+    invariance: the device backend's MSA equals NumPy's, native's and the
+    JAX package's device MSA, and LAST_BACKEND names the DP that served."""
+    ids, seqs = _family(5, 9, 150, (0, 25))
+    _, want = jcs.center_star_msa(ids, seqs, backend="device")
+    for backend in ("device", "numpy", "native"):
+        _, rows = tcs.center_star_msa(ids, seqs, backend=backend,
+                                      device="cpu")
+        assert rows == want, backend
+        assert tcs.LAST_BACKEND == backend
+    tcs.center_star_msa(ids[:1], seqs[:1], device="cpu")
+    assert tcs.LAST_BACKEND == "none"
+
+
+def test_refine_pass_device_equals_jax():
+    """The inputs of tests/test_align_device.py::test_refine_device_
+    matches_numpy: the port's device pass equals JAX's device pass, the
+    NumPy and the native pass, and moves residues."""
+    ids, seqs = _family(13, 14, 160, (5, 30))
+    _, rows = jcs.center_star_msa(ids, seqs, backend="numpy")
+    want = jrefine.refine_pass(rows, backend="device")
+    got = trefine.refine_pass(rows, backend="device", device="cpu")
+    assert got == want
+    assert got == trefine.refine_pass(rows, backend="numpy")
+    assert got == trefine.refine_pass(rows, backend="auto")
+    assert got != rows
+
+
+def test_refine_pass_device_blocks_and_ragged_rows():
+    """More members than one block (member_block 256 -> 300 members in two
+    blocks), rows of very different residue counts."""
+    ids, seqs = _family(29, 300, 90, (0, 40))
+    seqs[7] = seqs[7][:20]
+    _, rows = tcs.center_star_msa(ids, seqs, backend="native", device="cpu")
+    want = jrefine.refine_pass(rows, backend="numpy")
+    assert trefine.refine_pass(rows, backend="device", device="cpu") == want

@@ -261,3 +261,112 @@ def test_dimer_matrices_on_card(cuda):
     assert ms.MATCH_COUNTS_LAUNCHES > before + 1
     assert fused[1, 2]
     assert np.array_equal(fused, host) and np.array_equal(unfused, host)
+
+
+# ---------------------------------------------------------------------------
+# the device torch ops of design Stage A and the center-star/refine DPs:
+# the card's results equal the CPU's (integers, op codes, refined rows)
+# ---------------------------------------------------------------------------
+
+def _stage_a_masks(rng, n, length):
+    """A conserved family of IUPAC masks with gap runs, an all-gap row and
+    a block of planted Viterbi ties (half the rows A, half C)."""
+    base = rng.choice(np.array([1, 2, 4, 8], np.int32), size=length)
+    masks = np.tile(base, (n, 1))
+    mut = rng.random((n, length)) < 0.05
+    masks[mut] = rng.choice(np.array([1, 2, 4, 8, 5, 10, 7, 15, 0], np.int32),
+                            size=int(mut.sum()))
+    masks[0, :25] = 0
+    masks[1, -30:] = 0
+    masks[2] = 0
+    half = n // 2
+    masks[:half, 60:90] = np.where(np.arange(30) % 2, 1, 2)
+    masks[half:2 * half, 60:90] = np.where(np.arange(30) % 2, 2, 1)
+    return masks
+
+
+@pytest.mark.parametrize("plen,variation", [(18, 1), (25, 2)])
+def test_design_stats_blocks_card_equals_cpu(cuda, plen, variation):
+    from multiprime_tpu_torch.ops import design_scan
+    rng = np.random.default_rng(plen)
+    masks = _stage_a_masks(rng, 120, 400)
+    positions = np.arange(3, 400 - plen)
+    kw = dict(plen=plen, variation=variation, block=128)
+    want = list(design_scan.design_stats_blocks(masks, positions,
+                                                device="cpu", **kw))
+    got = list(design_scan.design_stats_blocks(masks, positions,
+                                               device=cuda, **kw))
+    assert len(got) == len(want) == 3
+    for (wp, ws), (gp, gs) in zip(want, got):
+        assert np.array_equal(wp, gp)
+        for key in ws:
+            assert gs[key].dtype == ws[key].dtype, key
+            assert np.array_equal(gs[key], ws[key]), key
+
+
+def _gotoh_members(rng, la, n):
+    c = rng.integers(0, 5, size=la).astype(np.int8)
+    members = []
+    for _ in range(n):
+        b = c.copy()
+        k = rng.random(la) < 0.06
+        b[k] = rng.integers(0, 4, size=int(k.sum()))
+        b = np.delete(b, rng.integers(0, la, size=int(rng.integers(0, 25))))
+        members.append(np.insert(b, rng.integers(0, len(b), size=int(
+            rng.integers(0, 25))), 2).astype(np.int8))
+    members += [np.empty(0, np.int8), c[:1], np.tile(c, 2)]
+    return c, members
+
+
+def test_align_ops_batch_device_card_equals_cpu(cuda):
+    from multiprime_tpu_torch.align import device as adev
+    rng = np.random.default_rng(31)
+    c, members = _gotoh_members(rng, 300, 70)
+    for as_codes in (False, True):
+        want = adev.align_ops_batch_device(c, members, member_block=32,
+                                           as_codes=as_codes, device="cpu")
+        got = adev.align_ops_batch_device(c, members, member_block=32,
+                                          as_codes=as_codes, device=cuda)
+        if as_codes:
+            assert np.array_equal(got, want)
+        else:
+            assert got == want
+
+
+def test_refine_pass_device_card_equals_cpu(cuda):
+    from multiprime_tpu_torch.align import centerstar, refine
+    rng = np.random.default_rng(41)
+    c, members = _gotoh_members(rng, 240, 60)
+    seqs = ["".join("ACGTN"[x] for x in m) for m in members[:-3]]
+    ids = [str(i) for i in range(len(seqs))]
+    _, rows = centerstar.center_star_msa(ids, seqs, backend="numpy",
+                                         device="cpu")
+    want = refine.refine_pass(rows, backend="device", device="cpu")
+    got = refine.refine_pass(rows, backend="device", device=cuda)
+    assert got == want and got != rows
+
+
+_FORK_AFTER_PROBE = r"""
+import multiprocessing, torch
+def work(_):
+    return float(torch.ones(4, device="cuda").sum())
+assert torch.cuda.is_available() and not torch.cuda.is_initialized()
+with multiprocessing.get_context("fork").Pool(1) as pool:
+    try:
+        pool.map(work, [0])
+    except RuntimeError as e:
+        print("refused:", e)
+"""
+
+
+def test_forked_worker_cannot_reinit_cuda(cuda):
+    """Why the driver spawns its cluster pool when the workers run torch
+    ops: once a process asked torch.cuda.is_available() (as Pipeline does),
+    a forked child's first CUDA call raises, though is_initialized() is
+    still False in the parent."""
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _FORK_AFTER_PROBE],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "refused:" in out.stdout and "forked subprocess" in out.stdout

@@ -134,12 +134,20 @@ def test_cuda_without_gpu_raises(tmp_path):
     assert not (tmp_path / "o.out").exists()
 
 
-def _new_entry_points():
-    """The entry points of the dimer matrix and the two-phase scan, called
-    with their default device."""
+def _new_entry_points(tmp_path):
+    """The entry points of the dimer matrix, the two-phase scan, device
+    Stage A, the device DPs and the design CLI, called with their default
+    device."""
+    from multiprime_tpu_torch.align import device as adev
+    from multiprime_tpu_torch.cli import design as tdesign
+    from multiprime_tpu_torch.ops import design_scan
     from multiprime_tpu_torch.ops import dimer
     from multiprime_tpu_torch.ops import mismatch_scan as ms
     oh = np.zeros((2, 24, 4), np.uint8)
+    masks = np.full((3, 40), 1, np.int32)
+    msa = tmp_path / "m.msa"
+    msa.write_text(">a\n" + "ACGT" * 60 + "\n>b\n" + "ACGT" * 60 + "\n")
+    rows = ["ACGT-ACGT", "ACGTTACGT"]
     return {
         "dimer_hit_matrix": lambda: dimer.dimer_hit_matrix(["ACGTACGTAC"]),
         "dimer_hit_matrix_fused":
@@ -147,16 +155,35 @@ def _new_entry_points():
         "match_counts": lambda: ms.match_counts(oh, oh[:1, :8]),
         "find_hits_bitmap": lambda: ms.find_hits_bitmap(
             oh, np.array([24, 24]), oh[:1, :8], oh[:1, :8]),
+        "design_stats": lambda: design_scan.design_stats(masks, [0, 5]),
+        "design_stats_blocks": lambda: list(
+            design_scan.design_stats_blocks(masks, [0, 5])),
+        "stage_a_device": lambda: mcdpd.DesignEngine(mcdpd.DesignParams(
+            stage_a="device", coverage=0.5, min_product=50)).design(
+                *mcdpd.parse_msa(str(msa))),
+        "align_ops_batch_device": lambda: adev.align_ops_batch_device(
+            np.array([0, 1, 2]), [np.array([0, 1])]),
+        "center_star_msa_device": lambda: centerstar.center_star_msa(
+            ["a", "b"], ["ACGT", "ACG"], backend="device"),
+        "refine_pass_device": lambda: refine.refine_pass(rows,
+                                                         backend="device"),
+        "design_cli": lambda: tdesign.main(["-i", str(msa), "-o", str(
+            tmp_path / "o.out"), "--stage-a", "host"]),
     }
 
 
 @pytest.mark.parametrize("name", ["dimer_hit_matrix",
                                   "dimer_hit_matrix_fused", "match_counts",
-                                  "find_hits_bitmap"])
-def test_new_entry_points_default_to_cuda(name):
+                                  "find_hits_bitmap", "design_stats",
+                                  "design_stats_blocks", "stage_a_device",
+                                  "align_ops_batch_device",
+                                  "center_star_msa_device",
+                                  "refine_pass_device", "design_cli"])
+def test_new_entry_points_default_to_cuda(name, tmp_path):
     _needs_no_gpu()
     with pytest.raises(RuntimeError, match="is_available"):
-        _new_entry_points()[name]()
+        _new_entry_points(tmp_path)[name]()
+    assert not (tmp_path / "o.out").exists()
 
 
 @pytest.mark.parametrize("override", [
@@ -170,14 +197,24 @@ def test_unported_pipeline_options_raise(tmp_path, override):
                              results_dir=str(tmp_path / "res"), **override)
 
 
-def test_unported_device_backends_raise():
-    with pytest.raises(NotImplementedError, match="Stage A"):
-        mcdpd.resolve_stage_a(100, 100, 18)
-    with pytest.raises(NotImplementedError, match="align/device.py"):
-        centerstar._use_device_backend("device", 10, 100)
-    assert centerstar._use_device_backend("auto", 10 ** 6, 10 ** 6) is False
-    with pytest.raises(NotImplementedError, match="align/device.py"):
-        refine._refine_pass_device([], None, None)
+def test_unported_device_backends_raise(monkeypatch):
+    """Device Stage A and the device DPs are ported: they resolve to the
+    device instead of raising NotImplementedError; the auto align policy
+    takes the device DP only for a CUDA device and a large pointer tensor;
+    the design engine still refuses the unported v2 flow."""
+    monkeypatch.delenv("MPTPU_FORCE_BACKEND", raising=False)
+    assert mcdpd.resolve_stage_a(100, 100, 18) == "device"
+    monkeypatch.setenv("MPTPU_FORCE_BACKEND", "host")
+    assert mcdpd.resolve_stage_a(100, 100, 18) == "host"
+    assert centerstar._use_device_backend("device", 10, 100, "cpu") is True
+    assert centerstar._use_device_backend("auto", 1024, 512, "cuda") is True
+    assert centerstar._use_device_backend("auto", 1023, 512, "cuda") is False
+    assert centerstar._use_device_backend("auto", 10 ** 6, 10 ** 6,
+                                          "cpu") is False
+    assert centerstar._use_device_backend("numpy", 10 ** 6, 10 ** 6) is False
+    with pytest.raises(NotImplementedError, match="v2"):
+        mcdpd.DesignEngine(mcdpd.DesignParams(algo="v2"))._design_window_v2(
+            *([None] * 12))
 
 
 def test_fork_safe_tracks_cuda(monkeypatch):

@@ -159,7 +159,7 @@ def test_scan_cli_equals_jax(tmp_path, scan_inputs):
 
 
 def test_cli_unported_subcommands_exit_2(capsys):
-    for cmd in ("design", "pcr", "specificity", "tm"):
+    for cmd in ("solve", "pcr", "specificity", "tm"):
         assert tcli.main([cmd, "-i", "x"]) == 2
         assert "not ported yet" in capsys.readouterr().out
     assert tcli.main(["nonsense"]) == 2
