@@ -49,7 +49,23 @@ the final line):
    refine_pass_device vs native.refine_realign on its members with seeded
    indels (one 512-member Gotoh block timed); CUDA launches and device
    busy time of one block each (torch.profiler), peak device memory;
-11. the kernels line.
+11. `specificity` through the CLI against a seeded background of about
+   64 Mb (15 x 4 Mb and one shorter sequence, so that the scan's last
+   batch holds padding rows) holding 200 planted amplicons of phase 5's
+   candidate pairs, 30 of them across a multiple of the segment stride:
+   on the card and on the host backend (MPTPU_FORCE_BACKEND=host), with
+   and without --exhaustive-join, every output byte-identical between the
+   two, at least 150 plants in the exhaustive .out; the hit-code kernel
+   held to its plain version on the scan's last batch (padding rows
+   included) and timed there with the find_hits compaction (16 segments
+   of 65,536 bases x the 18-base keys);
+12. `update -f DO` (phase 4's final set as the core; the candidate pairs of
+   two family clusters not in the panel, the smallest such candidate sets,
+   as the new set; the formatted 21k targets as the reference DB) and
+   `nondimer-filter`, card vs host backend, byte-identical;
+13. `onestep` on the largest family cluster, card vs host backend, into the
+   same path, every file byte-identical;
+14. the kernels line.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -1234,6 +1250,401 @@ def phase_device_ops(args, report, res):
     report["device_ops"] = out
 
 
+# the specificity background: BACKGROUND_SEQS sequences of BACKGROUND_LEN
+# bases, about a set of 16 bacterial genomes, the last one a few segment
+# strides shorter so that the scan's last batch is part padding; PLANTS
+# amplicons planted in it, STRADDLES of them across a multiple of the
+# segment stride
+BACKGROUND_SEQS = 16
+BACKGROUND_LEN = 4000000
+PLANTS = 200
+STRADDLES = 30
+MIN_PLANTS_FOUND = 150
+
+# runs one subcommand of the port's CLI in this interpreter, then writes a
+# side file: exit code, wall, each scan_hits_long call's seconds and hits,
+# hit_codes launches, peak device memory and the scan backend
+CLI_DRIVER = r"""
+import json, sys, time
+import torch
+from multiprime_tpu_torch.cli import main as cli
+from multiprime_tpu_torch.ops import mismatch_scan as ms
+from multiprime_tpu_torch.validate import scan as vscan
+calls = []
+scan_long = vscan.scan_hits_long
+def timed(*a, **kw):
+    t0 = time.time()
+    out = scan_long(*a, **kw)
+    calls.append({"s": time.time() - t0, "hits": len(out),
+                  "targets": len(a[0]), "patterns": len(a[1])})
+    return out
+vscan.scan_hits_long = timed
+t0 = time.time()
+rc = cli.main(sys.argv[2:])
+side = {"rc": rc, "wall_s": time.time() - t0, "scans": calls,
+        "launches": ms.HIT_CODES_LAUNCHES, "backend": vscan.LAST_BACKEND,
+        "peak_bytes": torch.cuda.max_memory_allocated()
+        if torch.cuda.is_initialized() else 0}
+with open(sys.argv[1], "w") as f:
+    json.dump(side, f)
+sys.exit(rc)
+"""
+
+
+def run_cli(argv, work, name, host=False):
+    """One subcommand of the port's CLI in a subprocess (CLI_DRIVER), on
+    the card, or on the host backend with MPTPU_FORCE_BACKEND=host; the
+    hash seed fixed (update's dimer report follows set order).  -> the
+    side file's dict with the subprocess's wall ("process_s")."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONHASHSEED"] = "0"
+    env.pop("MPTPU_FORCE_BACKEND", None)
+    if host:
+        env["MPTPU_FORCE_BACKEND"] = "host"
+    side = os.path.join(work, name + ".side.json")
+    log_path = os.path.join(work, name + ".log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        rc = subprocess.run([sys.executable, "-c", CLI_DRIVER, side, *argv],
+                            cwd=HERE, env=env, stdout=log,
+                            stderr=subprocess.STDOUT).returncode
+    wall = time.time() - t0
+    if rc != 0:
+        with open(log_path) as log:
+            fail("%s exited %d:\n%s" % (" ".join(argv[:1] + [name]), rc,
+                                        log.read()[-4000:]))
+    with open(side) as f:
+        out = json.load(f)
+    out["process_s"] = wall
+    return out
+
+
+def candidate_pairs(primers_fa):
+    """(F, R) of a candidate FASTA, whose records come in F, R pairs."""
+    from multiprime_tpu_torch.validate import scan as vscan
+    ids, seqs = vscan.parse_fasta(primers_fa)
+    return [(seqs[i], seqs[i + 1]) for i in range(0, len(seqs) - 1, 2)
+            if ids[i].endswith("F") and ids[i + 1].endswith("R")]
+
+
+def substitute(rng, s, lo, hi):
+    """s with one substitution at a position in [lo, hi)."""
+    at = int(rng.integers(max(lo, 0), hi))
+    return s[:at] + str(rng.choice([c for c in "ACGT" if c != s[at]])) \
+        + s[at + 1:]
+
+
+def plant_amplicons(rng, genomes, pairs, stride):
+    """Plants PLANTS amplicons in the uint8 genomes: one expansion of F,
+    the reverse complement of one expansion of R 150-1,400 bases after F's
+    3' 18-mer, each site with 0-1 substitutions in its scanned 18-mer
+    outside its last 4 bases; the first STRADDLES put F's 18-mer across a
+    multiple of the segment stride.  -> [(genome, 18-mer start, R site
+    start)], the rows a planted amplicon gives."""
+    from multiprime_tpu_torch.utils import iupac
+    boundaries = [(g, k * stride) for g in range(len(genomes))
+                  for k in range(1, (len(genomes[g]) - 1500) // stride + 1)]
+    picks = rng.choice(len(boundaries), size=STRADDLES, replace=False)
+    taken = {g: [] for g in range(len(genomes))}
+    sites = []
+    while len(sites) < PLANTS:
+        f, r = pairs[int(rng.integers(0, len(pairs)))]
+        fx = iupac.expand(f)
+        fx = fx[int(rng.integers(0, len(fx)))]
+        rx = iupac.expand(r)
+        rx = rx[int(rng.integers(0, len(rx)))]
+        if rng.random() < 0.5:
+            fx = substitute(rng, fx, len(fx) - 18, len(fx) - 4)
+        if rng.random() < 0.5:       # R's 3' 14 bases: the site's first 14
+            rx = substitute(rng, rx, len(rx) - 14, len(rx))
+        if len(sites) < STRADDLES:
+            g, b = boundaries[picks[len(sites)]]
+            start = b - int(rng.integers(1, 18))
+        else:
+            g = int(rng.integers(0, len(genomes)))
+            start = int(rng.integers(100, len(genomes[g]) - 1600))
+        at = start - max(len(fx) - 18, 0)
+        stop = start + int(rng.integers(150, 1401))
+        site = iupac.rc(rx)
+        if at < 0 or stop + len(site) > len(genomes[g]) or any(
+                abs(start - t) < 3000 for t in taken[g]):
+            continue
+        genomes[g][at:at + len(fx)] = np.frombuffer(fx.encode(), np.uint8)
+        genomes[g][stop:stop + len(site)] = np.frombuffer(site.encode(),
+                                                          np.uint8)
+        taken[g].append(start)
+        sites.append((g, start, stop))
+    return sites
+
+
+def segment_count(n, seg_len, stride):
+    """Segments scan_hits_long cuts a target of n bases into."""
+    return 1 + max(0, -(-(n - seg_len) // stride))
+
+
+def background_lengths(seg_len, stride, bs):
+    """BACKGROUND_SEQS lengths: BACKGROUND_LEN each, the last five or more
+    strides shorter, until the segments do not fill whole batches of bs."""
+    lengths = [BACKGROUND_LEN] * BACKGROUND_SEQS
+    lengths[-1] -= 5 * stride
+    while sum(segment_count(n, seg_len, stride) for n in lengths) % bs == 0:
+        lengths[-1] -= stride
+    return lengths
+
+
+def write_background(args, work, primers, lengths):
+    """The seeded background FASTA (80 columns) with the planted
+    amplicons -> (path, planted rows)."""
+    rng = np.random.default_rng(args.seed + 5)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    genomes = [lut[rng.integers(0, 4, size=n)] for n in lengths]
+    sites = plant_amplicons(rng, genomes, candidate_pairs(primers),
+                            (1 << 16) - 17)
+    path = os.path.join(work, "background.fa")
+    with open(path, "wb") as f:
+        for g, arr in enumerate(genomes):
+            f.write(b">bg%d synthetic genome %d\n" % (g, g))
+            lines = arr[:len(arr) // 80 * 80].reshape(-1, 80)
+            body = np.concatenate([lines, np.full((len(lines), 1), 10,
+                                                  np.uint8)], axis=1)
+            f.write(body.tobytes())
+            if len(arr) % 80:
+                f.write(arr[len(arr) // 80 * 80:].tobytes() + b"\n")
+    return path, sites
+
+
+def phase_specificity(args, report, work, primers):
+    """`specificity` through the CLI against the seeded background, on the
+    card and on the host backend, with and without --exhaustive-join: the
+    four output files byte-identical between the backends, the planted
+    amplicons found; then the hit-code kernel and the compaction timed at
+    the background's batch shape."""
+    import torch
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.validate import scan as vscan
+    t0 = time.time()
+    # the scan's batch: the 18-base keys of the primers' 3' 18-mers
+    pats, _, keys, _ = vscan.expand_primer_fasta(primers, 18, None,
+                                                 with_keys=True)
+    keys = [k for k in (keys if keys is not None else pats) if len(k) == 18]
+    p1h, s1h = pattern_onehots(ms, keys, 4)
+    seg_len = vscan.ScanParams().seg_len
+    stride = seg_len - 17
+    bs = ms.safe_batch_size(vscan.ScanParams().device_batch_seqs,
+                            seg_len - 17, p1h.shape[0])
+    lengths = background_lengths(seg_len, stride, bs)
+    bg, sites = write_background(args, work, primers, lengths)
+    n_segs = sum(segment_count(n, seg_len, stride) for n in lengths)
+    say("phase 11 background: %d x %d bases and 1 x %d (%.6f Mb), %d "
+        "segments of %d in %d batches of %d (the last %d segments and %d "
+        "padding rows), %d planted amplicons (%d across a stride multiple) "
+        "(%.1f s)" % (len(lengths) - 1, lengths[0], lengths[-1],
+                      sum(lengths) / 1e6, n_segs, seg_len, -(-n_segs // bs),
+                      bs, n_segs % bs, -n_segs % bs, len(sites), STRADDLES,
+                      time.time() - t0))
+    out = {"background_bases": sum(lengths), "lengths": lengths,
+           "segments": n_segs, "batch_size": bs,
+           "batches_per_scan": -(-n_segs // bs),
+           "padding_rows": -n_segs % bs, "planted": len(sites), "runs": {}}
+    for join in ("early-exit", "exhaustive"):
+        dirs = {}
+        for backend in ("device", "host"):
+            name = "spec_%s_%s" % (join, backend)
+            d = dirs[backend] = os.path.join(work, name)
+            os.makedirs(d)
+            shutil.copy(primers, os.path.join(d, "primers.fa"))
+            side = run_cli(["specificity", "-i", os.path.join(d, "primers.fa"),
+                            "-r", bg, "-l", "18", "-t", "4", "-m", "1", "-s",
+                            "100,1500", "-o", os.path.join(d, "s.out"),
+                            "--device", DEVICE]
+                           + (["--exhaustive-join"] if join == "exhaustive"
+                              else []), work, name, host=backend == "host")
+            want = "device" if backend == "device" else "host"
+            if side["backend"] != want or (backend == "device"
+                                           and side["launches"] <= 0):
+                fail("specificity %s ran the %s scan with %d hit_codes "
+                     "launches" % (name, side["backend"], side["launches"]))
+            with open(os.path.join(d, "s.out")) as f:
+                side["rows"] = sum(1 for _ in f) - 1
+            out["runs"][name] = side
+            say("phase 11 specificity %s on the %s backend: %.2f s wall "
+                "(process %.2f s), scans %s s, hits %s, hit_codes launches "
+                "%d, peak device memory %.1f MiB, %d rows" % (
+                    join, backend, side["wall_s"], side["process_s"],
+                    [round(c["s"], 2) for c in side["scans"]],
+                    [c["hits"] for c in side["scans"]], side["launches"],
+                    side["peak_bytes"] / 2 ** 20, side["rows"]))
+        diff = tree_diff(dirs["device"], dirs["host"])
+        if diff is not None:
+            fail("specificity (%s join) %s differs between the card and the "
+                 "host backend" % (join, diff))
+        say("phase 11 specificity %s: device == host byte for byte (%s)"
+            % (join, ", ".join(sorted(os.listdir(dirs["device"])))))
+    with open(os.path.join(work, "spec_exhaustive_device", "s.out")) as f:
+        rows = {(r[0], int(r[1]), int(r[2])) for r in
+                (line.split("\t") for line in f.read().splitlines()[1:])}
+    found = sum(("bg%d" % g, a, b) in rows for g, a, b in sites)
+    straddled = sum(("bg%d" % g, a, b) in rows for g, a, b in
+                    sites[:STRADDLES])
+    say("phase 11 planted amplicons in the exhaustive .out: %d of %d (%d of "
+        "the %d across a stride multiple)" % (found, len(sites), straddled,
+                                              STRADDLES))
+    if found < MIN_PLANTS_FOUND:
+        fail("specificity found %d planted amplicons, fewer than %d"
+             % (found, MIN_PLANTS_FOUND))
+    out.update(found=found, straddled_found=straddled)
+    # the kernel and the compaction at the scan's batch shape, on the scan's
+    # last batch: the last genome's last segments (its final one shorter
+    # than the rest), then zero padding rows, as scan_hits stacks them
+    _, seqs = vscan.parse_fasta(bg)
+    last = seqs[-1]
+    del seqs
+    offs = [k * stride for k in range(segment_count(len(last), seg_len,
+                                                    stride))]
+    segs = [last[o:o + seg_len] for o in offs[-(n_segs % bs):]]
+    masks = np.zeros((bs, seg_len), np.uint8)
+    lens = np.zeros(bs, np.int32)
+    masks[:len(segs)], lens[:len(segs)] = ms.encode_target_masks(
+        segs, length=seg_len)
+    report["hit_codes_background_shape"] = measure_kernel(
+        ms, masks, p1h, s1h, 1, 4, "phase 11 kernel at the background's "
+        "last batch (%d segments, %d padding rows)" % (len(segs),
+                                                       bs - len(segs)))
+    dev = torch.device(DEVICE)
+    tm = torch.from_numpy(masks).to(dev)
+    tl = torch.from_numpy(lens).to(dev)
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    codes = ms.hit_codes(tm, planes, sfx, plen=18, mm=1, term=4)
+    compaction_ms = cuda_ms(lambda: ms.find_hits_from_codes(
+        codes, tl, plen=18, max_hits=1 << 17), 10)
+    compaction_bound = codes.numel() / HBM_BYTES_PER_S * 1e3
+    out["compaction"] = {"ms": compaction_ms, "bound_ms": compaction_bound,
+                         "bytes": codes.numel()}
+    say("phase 11 compaction (find_hits_from_codes) of one batch %s: "
+        "%.4f ms, bytes bound %.4f ms; %d batches of %d segments a scan"
+        % (list(codes.shape), compaction_ms, compaction_bound,
+           out["batches_per_scan"], bs))
+    del codes
+    report["specificity"] = out
+
+
+def phase_update(args, report, work, res):
+    """`update -f DO` (phase 4's final set as the core, the candidate pairs
+    of two family clusters outside it as the new set, the formatted 21k
+    targets as the reference DB) and `nondimer-filter`, on the card and on
+    the host backend: every output byte-identical."""
+    core = os.path.join(res, "Core_primers_set",
+                        "core_final_maxprimers_set.fa")
+    if not os.path.exists(core):
+        core = os.path.join(res, "Primers_set", "final_maxprimers_set.fa")
+    from multiprime_tpu_torch.validate import scan as vscan
+    core_seqs = set(vscan.parse_fasta(core)[1])
+    # the family clusters with none of their primers in the panel first,
+    # the smallest candidate sets first among them
+    clusters = []
+    for path in glob.glob(os.path.join(res, "Primers_set",
+                                       "candidate_primers_sets",
+                                       "*.candidate.primers.fa")):
+        members = int(os.path.basename(path).split(".")[0].rsplit("_", 1)[1])
+        ids, seqs = vscan.parse_fasta(path)
+        if members > 1 and seqs:
+            clusters.append((bool(core_seqs & set(seqs)), len(seqs),
+                             os.path.basename(path), ids, seqs))
+    if len(clusters) < 2:
+        fail("fewer than two family clusters have candidate primers")
+    lines, picked = [], []
+    for in_panel, _, name, ids, seqs in sorted(clusters)[:2]:
+        picked.append((name, in_panel))
+        lines += [">%s\n%s\n" % (i, s) for i, s in zip(ids, seqs)
+                  if s not in core_seqs]
+    if not lines:
+        fail("the two family clusters' candidates are all in the core set")
+    ref = os.path.join(res, "Total_fa", "scale21k.format.fa")
+    dirs, out = {}, {"new_primers": len(lines), "clusters": picked}
+    for backend in ("device", "host"):
+        d = dirs[backend] = os.path.join(work, "update_" + backend)
+        for sub in ("core", "new"):
+            os.makedirs(os.path.join(d, sub))
+        shutil.copy(core, os.path.join(d, "core", "core.fa"))
+        with open(os.path.join(d, "new", "new.fa"), "w") as f:
+            f.write("".join(lines))
+        host = backend == "host"
+        side = run_cli(["update", "-i", os.path.join(d, "new", "new.fa"),
+                        "-c", os.path.join(d, "core", "core.fa"), "-r", ref,
+                        "-f", "DO", "-o", os.path.join(d, "upd"), "--device",
+                        DEVICE], work, "update_" + backend, host=host)
+        if side["backend"] != ("host" if host else "device") or (
+                not host and side["launches"] <= 0):
+            fail("update on the %s backend ran the %s scan" % (
+                backend, side["backend"]))
+        flt = run_cli(["nondimer-filter", "-i",
+                       os.path.join(d, "new", "new.fa"), "-p",
+                       os.path.join(d, "core", "core.fa"), "-o",
+                       os.path.join(d, "clean.fa")], work,
+                      "nondimer_" + backend, host=host)
+        counts = {}
+        for n in ("upd.dimer", "upd.offtargets", "clean.fa"):
+            with open(os.path.join(d, n)) as f:
+                counts[n] = sum(1 for _ in f)
+        out[backend] = {"update": side, "nondimer_filter": flt,
+                        "lines": counts}
+        say("phase 12 update -f DO on the %s backend: %.2f s wall, scans %s "
+            "s, hit_codes launches %d, peak device memory %.1f MiB; "
+            "nondimer-filter %.2f s; lines %s" % (
+                backend, side["wall_s"],
+                [round(c["s"], 2) for c in side["scans"]], side["launches"],
+                side["peak_bytes"] / 2 ** 20, flt["wall_s"],
+                json.dumps(counts)))
+    diff = tree_diff(dirs["device"], dirs["host"])
+    if diff is not None:
+        fail("update / nondimer-filter output %s differs between the card "
+             "and the host backend" % diff)
+    say("phase 12 update (%d core, %d new primers of %s) and "
+        "nondimer-filter: device == host byte for byte (%s)" % (
+            len(core_seqs), len(lines),
+            ", ".join("%s%s" % (n, " (in the panel)" if p else "")
+                      for n, p in picked), "every file"))
+    report["update"] = out
+
+
+def phase_onestep(args, report, work, res):
+    """`onestep` on the largest family cluster's .tmsa and .tfa, on the
+    card and on the host backend, into the same path (the candidate .txt
+    embeds it): every file byte-identical."""
+    with open(os.path.join(res, "cluster.txt")) as f:
+        _, name = max((int(n), name) for name, n in
+                      (line.split("\t") for line in f.read().splitlines()[1:]))
+    d = os.path.join(work, "onestep")
+    walls, sides = {}, {}
+    for backend in ("device", "host"):
+        os.makedirs(d)
+        side = run_cli([
+            "onestep", "-i", os.path.join(res, "Clusters_msa", name + ".tmsa"),
+            "-r", os.path.join(res, "Clusters_fa", name + ".tfa"), "-s",
+            "250,500", "--out1", os.path.join(d, name + ".top.primer.out"),
+            "-o", os.path.join(d, name + ".candidate.primers.txt"),
+            "--device", DEVICE], work, "onestep_" + backend,
+            host=backend == "host")
+        if side["backend"] != ("host" if backend == "host" else "device") \
+                or (backend == "device" and side["launches"] <= 0):
+            fail("onestep on the %s backend ran the %s scan"
+                 % (backend, side["backend"]))
+        walls[backend], sides[backend] = side["wall_s"], side
+        if backend == "device":
+            os.rename(d, d + "_device")
+    diff = tree_diff(d + "_device", d)
+    if diff is not None:
+        fail("onestep output %s differs between the card and the host "
+             "backend" % diff)
+    n_files = sum(len(n) for _, _, n in os.walk(d))
+    say("phase 13 onestep on %s: %d files, device == host byte for byte; "
+        "%.2f s on the card (%d hit_codes launches), %.2f s on the host "
+        "backend" % (name, n_files, walls["device"],
+                     sides["device"]["launches"], walls["host"]))
+    report["onestep"] = {"cluster": name, "files": n_files, "runs": sides}
+
+
 def kernel_entry(m, name, source, replaces):
     """One kernel's entry of the kernels line, from its measurements."""
     return {"name": name, "route": "cuda",
@@ -1265,26 +1676,45 @@ def main():
         fail("imported multiprime_tpu_torch from outside this checkout")
     say("torch %s, CUDA %s, python %s" % (
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
-    report = {}
+    report = {"phase_s": {}}
     t_start = time.time()
-    phase_build(args, report)
-    phase_kernel(args, report)
-    phase_find_hits(args, report)
+
+    def phase(n, fn, *a):
+        t0 = time.time()
+        out = fn(args, report, *a)
+        report["phase_s"][n] = round(time.time() - t0, 1)
+        say("phase %d took %.1f s (%.1f s in all)" % (
+            n, report["phase_s"][n], time.time() - t_start))
+        return out
+    phase(1, phase_build)
+    phase(2, phase_kernel)
+    phase(3, phase_find_hits)
     work = tempfile.mkdtemp(prefix="mptpu_smoke_")
     try:
-        res, launches = phase_run(args, report, work)
-        primers, keys = phase_scan(args, report, work, res)
-        phase_new_kernels(args, report)
-        phase_bitmap(args, report, res, keys)
-        phase_dimer(args, report, primers)
-        phase_device_run(args, report, work, res)
-        phase_device_ops(args, report, res)
+        res, launches = phase(4, phase_run, work)
+        primers, keys = phase(5, phase_scan, work, res)
+        phase(6, phase_new_kernels)
+        phase(7, phase_bitmap, res, keys)
+        phase(8, phase_dimer, primers)
+        phase(9, phase_device_run, work, res)
+        phase(10, phase_device_ops, res)
+        phase(11, phase_specificity, work, primers)
+        phase(12, phase_update, work, res)
+        phase(13, phase_onestep, work, res)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["hit_codes"]["launches"] = launches
+    # the launches of every path that drove the kernel, each its own process
+    spec = report["specificity"]["runs"]
+    by_path = {"run": launches,
+               "specificity": sum(spec[n]["launches"] for n in spec
+                                  if n.endswith("_device")),
+               "update": report["update"]["device"]["update"]["launches"],
+               "onestep": report["onestep"]["runs"]["device"]["launches"]}
     kernels = {"kernels": [
-        kernel_entry(report["hit_codes"], "hit_codes", "hit_codes.cu",
-                     "multiprime_tpu/ops/mismatch_scan.py:173"),
+        dict(kernel_entry(report["hit_codes"], "hit_codes", "hit_codes.cu",
+                          "multiprime_tpu/ops/mismatch_scan.py:173"),
+             launches_by_path=by_path),
         kernel_entry(report["match_counts"], "match_counts",
                      "match_counts.cu",
                      "multiprime_tpu/ops/mismatch_scan.py:150"),

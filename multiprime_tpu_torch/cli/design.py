@@ -31,7 +31,7 @@ def build_parser():
     p.add_argument("-a", "--away", type=int, default=4)
     p.add_argument("-o", "--out", required=True)
     p.add_argument("--algo", choices=["v20", "v16", "v15", "v2"], default="v20",
-                   help="design engine generation (v2 is not ported yet)")
+                   help="design engine generation")
     p.add_argument("--stage-a", choices=["host", "device", "auto"],
                    default="host", dest="stage_a",
                    help="Stage-A backend: batched torch ops on --device, or "

@@ -1036,11 +1036,51 @@ class DesignEngine:
     def _design_window_v2(self, position, c_bit, t_bit, viterbi_path, cover,
                           cover_for_mm, keys, key_chars, counts_list,
                           non_gap_seq_id, cover_number, gap_seq_id):
-        """The multiPrime2 "global optimum" flow (models/global_opt.py) is
-        not ported yet."""
-        raise NotImplementedError(
-            "design algo 'v2' is not ported to PyTorch yet "
-            "(ROADMAP.md: global_opt)")
+        """multiPrime2 "global optimum" flow (refine_by_multiPrime2,
+        multiPrime2_onstep.py:1156-1237): combination-search refinement of
+        the consensus instead of the greedy NN walk; the branch choice uses
+        the refined coverage, NM winning ties."""
+        from . import global_opt
+        consensus_nm = "".join(BASES[i] for i in viterbi_path)
+        if cover_for_mm:
+            best = None
+            for k, v in cover_for_mm.items():
+                if best is None or v > best[1]:
+                    best = (k, v)
+            consensus_mm = best[0]
+            if consensus_nm == consensus_mm:
+                primer, coverage = global_opt.refine_global(
+                    consensus_nm, cover, self.p.dege_number,
+                    self.p.variation, cover_number)
+            else:
+                p_nm, cov_nm = global_opt.refine_global(
+                    consensus_nm, cover, self.p.dege_number,
+                    self.p.variation, cover_number)
+                p_mm, cov_mm = global_opt.refine_global(
+                    consensus_mm, cover, self.p.dege_number,
+                    self.p.variation, cover_number)
+                primer, coverage = (p_nm, cov_nm) if cov_nm >= cov_mm \
+                    else (p_mm, cov_mm)
+        else:
+            primer, coverage = global_opt.refine_global(
+                consensus_nm, cover, self.p.dege_number, self.p.variation,
+                cover_number)
+        f_mis, f_non, r_mis, r_non = self._mis_primer_check(
+            keys, key_chars, counts_list, primer, non_gap_seq_id)
+        expansions = iupac.expand(primer)
+        nonsense = len(set(expansions) - set(cover.keys()))
+        dege_n = iupac.num_degenerate_positions(primer)
+        degeneracy = iupac.degeneracy(primer)
+        tm_avg = thermo.tm_degenerate_mean(primer)
+        perfect = sum(cover.get(e, 0) for e in expansions)
+        info = self.pre_filter_info(primer)
+        if self.dimer_check(primer):
+            return None
+        res = WindowResult(position, c_bit, t_bit, primer, dege_n, nonsense,
+                           perfect, perfect + f_mis, perfect + r_mis, tm_avg,
+                           info, f_non, r_non, gap_seq_id)
+        res.degeneracy = degeneracy
+        return res
 
     def _finalize_pure(self, position, c_bit, t_bit, row, total, pre):
         """_finalize specialised to the uniform-pure fast path with the

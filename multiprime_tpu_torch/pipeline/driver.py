@@ -291,16 +291,10 @@ class Pipeline:
 
     # -- stages ----------------------------------------------------------------
     def run(self):
-        cfg = self.cfg
-        for unported, item in (
-                (int(cfg.devices or 1) > 1,
-                 "devices > 1 (parallel/mesh.py -> torch.distributed)"),
-                (cfg.align_backend == "progressive",
-                 "align_backend 'progressive'"),
-                (cfg.design_backend == "wrc", "design_backend 'wrc'")):
-            if unported:
-                raise NotImplementedError(
-                    "%s is not ported to PyTorch yet (see ROADMAP.md)" % item)
+        if int(self.cfg.devices or 1) > 1:
+            raise NotImplementedError(
+                "devices > 1 (parallel/mesh.py -> torch.distributed) is not "
+                "ported to PyTorch yet (see ROADMAP.md)")
         return self._run_body()
 
     def _run_body(self):
@@ -660,19 +654,27 @@ class Pipeline:
                     "align.backend=external but missing " + msa_path)
             ids, seqs = self._read_fasta(tfa)
             t0 = time.time()
-            _, rows = centerstar.center_star_msa(
-                ids, seqs,
-                backend="device"
-                if cfg.align_backend == "centerstar-device"
-                else "numpy"
-                if cfg.align_backend == "centerstar-numpy"
-                else "auto", device=self.device)
-            rep["served"]["align"] = centerstar.LAST_BACKEND
+            if cfg.align_backend == "progressive":
+                from ..align import progressive
+                _, rows = progressive.progressive_msa(ids, seqs)
+                rep["served"]["align"] = "progressive"
+            else:
+                _, rows = centerstar.center_star_msa(
+                    ids, seqs,
+                    backend="device"
+                    if cfg.align_backend == "centerstar-device"
+                    else "numpy"
+                    if cfg.align_backend == "centerstar-numpy"
+                    else "auto", device=self.device)
+                rep["served"]["align"] = centerstar.LAST_BACKEND
             if cfg.msa_refine > 0:
                 from ..align import refine
                 rows = refine.refine_msa(rows, cfg.msa_refine)
             centerstar.write_msa(ids, rows, msa_path)
             rep["align_s"] += time.time() - t0
+        if cfg.design_backend == "wrc":
+            self._wrc_cluster(name, msa_path, tfa)
+            return rep
         out = self._p("Clusters_primer", name + ".top.primer.out")
         cand = self._p("Clusters_cprimer",
                        name + ".candidate.primers.txt")
@@ -748,6 +750,34 @@ class Pipeline:
             # fan-out costs GBs of RSS and a growing gen-2 GC walk
             mcdpd.clear_memo_caches()
         return rep
+
+    def _wrc_cluster(self, name, msa_path, tfa):
+        """multi-DegePrime flow: trim + WRC design + get_degePrimer pairing
+        (multi-DegePrime.py:154-228)."""
+        from ..models import wrc, pairing
+        cfg = self.cfg
+        out = self._p("Clusters_primer", name + ".top.primer.out")
+        cand = self._p("Clusters_cprimer", name + ".candidate.primers.txt")
+        if not self._design_cache_valid(out, "wrc"):
+            if os.path.exists(cand):
+                os.remove(cand)
+            ids, rows = wrc.read_fasta_raw(msa_path)
+            trimmed, kept = wrc.trim_alignment(rows)
+            table = wrc.design_windows(
+                trimmed, plen=cfg.primer_len, max_deg=cfg.wrc_max_deg,
+                iterations=cfg.wrc_iterations, seed=cfg.sample_seed)
+            wrc.write_design(table, out)
+        if not os.path.exists(cand):
+            number = pairing.count_ref_seqs(tfa, cfg.max_seq)
+            primers = pairing.parse_degeprime_table(out, number)
+            eng = pairing.PairingEngine(pairing.PairingParams(
+                size=cfg.product_size, fraction=cfg.coverage,
+                end_dege=cfg.end, hairpin_distance=cfg.distance,
+                diff_tm=cfg.diff_tm, adaptor=cfg.adaptor))
+            pairs, _ = pairing.pair_degeprime(eng, primers)
+            pairing.write_degeprime_output(pairs, cand,
+                                           write_path=cand + ".tmp")
+            os.replace(cand + ".tmp", cand)
 
     def _aggregate_and_solve(self):
         from ..solve import maxset

@@ -1,4 +1,4 @@
-# Copied from multiprime_tpu/solve/maxset.py (host code, no JAX).
+# Port of multiprime_tpu/solve/maxset.py: the off-target screen scans on ``device``.
 """Greedy minimal primer-set assembly (get_Maxprimerset equivalent).
 
 Re-implements multiPrime/scripts/get_Maxprimerset.py with identical
@@ -433,13 +433,18 @@ def greedy_maximal(primers, output, next_candidate_file, step=5):
 
 def greedy_maximal_with_offtarget(primers, output, next_candidate_file,
                                   background_fa, step=5, mm=1, term=4,
-                                  product_size=(50, 2000)):
+                                  product_size=(50, 2000), device="cuda"):
     """Maximal mode with an in-loop off-target screen — the abandoned-but-
     intended extension of get_Maxprimerset_V3.py:300-645: a candidate pair is
     also rejected when it predicts an amplicon on a background database.
+
+    The background scans run on ``device`` (default cuda; raises without a
+    GPU); the background is encoded and uploaded once, not once a pair.
     """
+    from ..utils import link as linkmod
     from ..validate import scan as vscan
 
+    dev = linkmod.resolve_device(device)
     gene_ids, bg_seqs = vscan.parse_fasta(background_fa)
     params = vscan.ScanParams(term=term, mm=mm, product_size=product_size)
     cache = {}
@@ -451,8 +456,8 @@ def greedy_maximal_with_offtarget(primers, output, next_candidate_file,
         from ..utils import iupac
         f_pats = list(iupac.expand(primer_f))
         r_pats = [iupac.rc(e) for e in iupac.expand(primer_r)]
-        f_hits = vscan.scan_hits(bg_seqs, f_pats, params)
-        r_hits = vscan.scan_hits(bg_seqs, r_pats, params)
+        f_hits = vscan.scan_hits(bg_seqs, f_pats, params, dev)
+        r_hits = vscan.scan_hits(bg_seqs, r_pats, params, dev)
         rows = vscan.pcr_join(gene_ids, f_hits, r_hits,
                               ["F"] * len(f_pats) + ["R"] * len(r_pats),
                               product_size)
@@ -462,7 +467,8 @@ def greedy_maximal_with_offtarget(primers, output, next_candidate_file,
     ledger = DimerLedger()
     clique = []
     row_pointer, column_pointer = 0, 1
-    with open(next_candidate_file, "w") as next_f:
+    with vscan.shared_corpus(params), open(next_candidate_file, "w") \
+            as next_f:
         while row_pointer < len(primers):
             row = primers[row_pointer]
             if len(row) <= 1:

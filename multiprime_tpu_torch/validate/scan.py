@@ -33,6 +33,7 @@ from __future__ import annotations
 import os
 import re
 from bisect import bisect_left
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,10 +61,11 @@ class ScanParams:
     want_mism: bool = False     # per-hit mismatch counts (the F/R join
                                 # doesn't need them; halves transfer bytes)
     corpus_cache: dict = None   # device-resident target tensors, keyed by
-                                # (pad_len, batch).  run() sets {} so the
-                                # F scan's one upload serves the R scan,
-                                # every retry, and any later pattern set —
-                                # the transfer term is paid once per corpus
+                                # (pad_len, batch).  shared_corpus() sets
+                                # {} so the F scan's one upload serves the
+                                # R scan, every retry, and any later
+                                # pattern set — the transfer term is paid
+                                # once per corpus
     seg_len: int = 1 << 16      # targets longer than this are scanned as
                                 # overlapping segments (the sequence-parallel
                                 # split of the position axis; the reference
@@ -440,6 +442,21 @@ def write_outputs(rows, outfile, targets_dict=None):
     return pair_count
 
 
+@contextmanager
+def shared_corpus(params: ScanParams):
+    """Every scan with ``params`` inside the block shares one device-resident
+    corpus cache (each corpus encoded and uploaded once for all of them),
+    released at the end; a cache the caller set already is the caller's."""
+    if params.corpus_cache is not None:
+        yield params
+        return
+    params.corpus_cache = {}
+    try:
+        yield params
+    finally:
+        params.corpus_cache = None       # release the device tensors
+
+
 def run(primer_fa, ref_fa, outfile, params: ScanParams, targets_dict=None,
         device="cuda"):
     """Full coverage-validation flow; the device scans run on ``device``."""
@@ -454,17 +471,9 @@ def run(primer_fa, ref_fa, outfile, params: ScanParams, targets_dict=None,
         patterns, labels = keys, key_labels
     gene_ids, target_seqs = parse_fasta(ref_fa)
     rc_patterns = [iupac.rc(p) for p in patterns]
-    fresh_cache = params.corpus_cache is None
-    if fresh_cache:
-        # device-resident corpus for the duration of this validation: the
-        # F scan's upload serves the R scan and every retry
-        params.corpus_cache = {}
-    try:
+    with shared_corpus(params):
         f_hits = scan_hits_long(target_seqs, patterns, params, dev)
         r_hits = scan_hits_long(target_seqs, rc_patterns, params, dev)
-    finally:
-        if fresh_cache:
-            params.corpus_cache = None       # release the device tensors
     rows = pcr_join(gene_ids, f_hits, r_hits, labels, params.product_size)
     write_outputs(rows, outfile, targets_dict)
     return rows

@@ -370,3 +370,77 @@ def test_forked_worker_cannot_reinit_cuda(cuda):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "refused:" in out.stdout and "forked subprocess" in out.stdout
+
+
+def _planted_background(rng, lengths, pats, near):
+    """Random targets of the given lengths with the patterns (and their
+    reverse complements) planted at random positions and straddling each
+    offset of `near` (segment boundaries), 0-1 substitutions outside the
+    last 4 bases."""
+    from multiprime_tpu_torch.utils import iupac
+    seqs = []
+    for n in lengths:
+        s = list(rng.choice(np.array(list("ACGT")), size=n))
+        spots = [b - int(rng.integers(1, 17)) for b in near if b < n - 40]
+        spots += [int(rng.integers(0, n - 40)) for _ in range(30)]
+        for i, at in enumerate(spots):
+            p = iupac.expand(pats[i % len(pats)])[0]
+            if i % 2:
+                p = iupac.rc(p)
+            p = list(p)
+            if i % 3 == 0:
+                k = int(rng.integers(0, len(p) - 4))
+                p[k] = "A" if p[k] != "A" else "C"
+            s[at:at + len(p)] = p
+        seqs.append("".join(s))
+    return seqs
+
+
+def test_scan_hits_long_on_card_equals_cpu(cuda):
+    """Targets of 3-4 segments of 65,536 bases (stride 65,519 for 18-mers),
+    hits planted across the segment boundaries: the card's scan equals the
+    host scan and the plain version on the CPU, hit for hit."""
+    rng = np.random.default_rng(7)
+    pats = ["".join(rng.choice(list("ACGTRY"), size=18)) for _ in range(12)]
+    stride = (1 << 16) - 17
+    seqs = _planted_background(rng, [150000, 200000, 260000], pats,
+                               [stride * k for k in range(1, 4)])
+    from multiprime_tpu_torch.utils import iupac
+    for patterns in (pats, [iupac.rc(p) for p in pats]):
+        got = vscan.scan_hits_long(seqs, patterns, vscan.ScanParams(
+            mm=1, term=4, backend="device", want_mism=True), device=cuda)
+        host = vscan.scan_hits_long(seqs, patterns, vscan.ScanParams(
+            mm=1, term=4, backend="numpy"), device=cuda)
+        plain = vscan.scan_hits_long(seqs, patterns, vscan.ScanParams(
+            mm=1, term=4, backend="device", want_mism=True,
+            device_batch_seqs=4), device="cpu")
+        assert got == plain == host
+        crossing = [h for h in got if h[1] % stride > stride - 18]
+        assert len(got) > 40 and crossing
+
+
+def test_specificity_on_card_equals_cpu(cuda, tmp_path):
+    """A small `specificity` run (with and without --exhaustive-join) on the
+    card writes the files that --device cpu writes, byte for byte."""
+    from multiprime_tpu_torch.cli import main as cli
+    rng = np.random.default_rng(9)
+    pats = ["".join(rng.choice(list("ACGTRYKM"), size=20)) for _ in range(8)]
+    seqs = _planted_background(rng, [int(rng.integers(3000, 9000))
+                                     for _ in range(30)], pats, [])
+    bg = tmp_path / "bg.fa"
+    bg.write_text("".join(">b%d\n%s\n" % (i, s) for i, s in enumerate(seqs)))
+    prim = "".join(">P%d_%s\n%s\n" % (i // 2, "FR"[i % 2], p)
+                   for i, p in enumerate(pats))
+    for extra in ([], ["--exhaustive-join"]):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            d = tmp_path / (device + "".join(extra))
+            d.mkdir()
+            (d / "p.fa").write_text(prim)
+            assert cli.main(["specificity", "-i", str(d / "p.fa"), "-r",
+                             str(bg), "-l", "18", "-t", "4", "-m", "1", "-s",
+                             "100,1500", "-o", str(d / "s.out"), "--device",
+                             device] + extra) == 0
+            outs[device] = {p.name: p.read_bytes() for p in d.iterdir()}
+        assert outs["cuda"] == outs["cpu"]
+        assert outs["cuda"]["s.out"].count(b"\n") > 5

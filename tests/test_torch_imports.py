@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it loads neither JAX nor the JAX package,
-asks for the GPU unless told otherwise, and refuses the paths it has not
-ported yet instead of running something else."""
+asks for the GPU unless told otherwise, and refuses the one path it has not
+ported yet (more than one GPU) instead of running something else."""
 
 import ast
 import json
@@ -136,18 +136,26 @@ def test_cuda_without_gpu_raises(tmp_path):
 
 def _new_entry_points(tmp_path):
     """The entry points of the dimer matrix, the two-phase scan, device
-    Stage A, the device DPs and the design CLI, called with their default
-    device."""
+    Stage A, the device DPs, the design CLI and the scans of specificity,
+    update, onestep and the solver's off-target screen, called with their
+    default device."""
     from multiprime_tpu_torch.align import device as adev
     from multiprime_tpu_torch.cli import design as tdesign
     from multiprime_tpu_torch.ops import design_scan
     from multiprime_tpu_torch.ops import dimer
     from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.solve import maxset
+    from multiprime_tpu_torch.validate import specificity, update
     oh = np.zeros((2, 24, 4), np.uint8)
     masks = np.full((3, 40), 1, np.int32)
     msa = tmp_path / "m.msa"
     msa.write_text(">a\n" + "ACGT" * 60 + "\n>b\n" + "ACGT" * 60 + "\n")
     rows = ["ACGT-ACGT", "ACGTTACGT"]
+    prim = tmp_path / "p.fa"
+    prim.write_text(">p_F\nACGTACGTAC\n>p_R\nGTACGTACGT\n")
+    out = str(tmp_path / "o.out")
+    spec = ["-i", str(prim), "-r", str(msa), "-o", out]
+    pairs = [["c1", "ACGTACGTAC", "GTACGTACGT", "1:2:3", "9", "0:1"]]
     return {
         "dimer_hit_matrix": lambda: dimer.dimer_hit_matrix(["ACGTACGTAC"]),
         "dimer_hit_matrix_fused":
@@ -169,6 +177,17 @@ def _new_entry_points(tmp_path):
                                                          backend="device"),
         "design_cli": lambda: tdesign.main(["-i", str(msa), "-o", str(
             tmp_path / "o.out"), "--stage-a", "host"]),
+        "specificity": lambda: specificity.run(str(prim), str(msa), out),
+        "update_with_ref": lambda: update.run(str(prim), str(prim), str(msa),
+                                              out),
+        "greedy_maximal_with_offtarget":
+            lambda: maxset.greedy_maximal_with_offtarget(pairs, out, out,
+                                                         str(msa)),
+        "specificity_cli": lambda: tcli.main(["specificity"] + spec),
+        "update_cli": lambda: tcli.main(["update", "-c", str(prim)] + spec),
+        "onestep_cli": lambda: tcli.main([
+            "onestep", "-i", str(msa), "-r", str(msa), "--out1", out, "-o",
+            str(tmp_path / "o.txt")]),
     }
 
 
@@ -178,17 +197,20 @@ def _new_entry_points(tmp_path):
                                   "design_stats_blocks", "stage_a_device",
                                   "align_ops_batch_device",
                                   "center_star_msa_device",
-                                  "refine_pass_device", "design_cli"])
+                                  "refine_pass_device", "design_cli",
+                                  "specificity", "update_with_ref",
+                                  "greedy_maximal_with_offtarget",
+                                  "specificity_cli", "update_cli",
+                                  "onestep_cli"])
 def test_new_entry_points_default_to_cuda(name, tmp_path):
     _needs_no_gpu()
     with pytest.raises(RuntimeError, match="is_available"):
         _new_entry_points(tmp_path)[name]()
     assert not (tmp_path / "o.out").exists()
+    assert not (tmp_path / "p.term.fa").exists()
 
 
-@pytest.mark.parametrize("override", [
-    {"devices": 2}, {"align_backend": "progressive"},
-    {"design_backend": "wrc"}])
+@pytest.mark.parametrize("override", [{"devices": 2}])
 def test_unported_pipeline_options_raise(tmp_path, override):
     ref = tmp_path / "r.fa"
     ref.write_text(">r\n" + "ACGT" * 100 + "\n")
@@ -197,11 +219,25 @@ def test_unported_pipeline_options_raise(tmp_path, override):
                              results_dir=str(tmp_path / "res"), **override)
 
 
+@pytest.mark.parametrize("override", [
+    {"align_backend": "progressive"}, {"design_backend": "wrc"}])
+def test_ported_pipeline_options_run(tmp_path, override):
+    """The progressive MSA and the WRC designer are ported: the run that
+    raised before completes (their trees are held to JAX's in
+    tests/test_torch_backends.py)."""
+    ref = tmp_path / "r.fa"
+    ref.write_text(">r\n" + "ACGT" * 100 + "\n")
+    pipe, log = tdriver.run_pipeline(None, input_fa=str(ref), device="cpu",
+                                     results_dir=str(tmp_path / "res"),
+                                     **override)
+    assert log and (tmp_path / "res" / "cluster.txt").exists()
+
+
 def test_unported_device_backends_raise(monkeypatch):
     """Device Stage A and the device DPs are ported: they resolve to the
     device instead of raising NotImplementedError; the auto align policy
     takes the device DP only for a CUDA device and a large pointer tensor;
-    the design engine still refuses the unported v2 flow."""
+    and the design engine designs the v2 flow."""
     monkeypatch.delenv("MPTPU_FORCE_BACKEND", raising=False)
     assert mcdpd.resolve_stage_a(100, 100, 18) == "device"
     monkeypatch.setenv("MPTPU_FORCE_BACKEND", "host")
@@ -212,9 +248,18 @@ def test_unported_device_backends_raise(monkeypatch):
     assert centerstar._use_device_backend("auto", 10 ** 6, 10 ** 6,
                                           "cpu") is False
     assert centerstar._use_device_backend("numpy", 10 ** 6, 10 ** 6) is False
-    with pytest.raises(NotImplementedError, match="v2"):
-        mcdpd.DesignEngine(mcdpd.DesignParams(algo="v2"))._design_window_v2(
-            *([None] * 12))
+    rng = np.random.default_rng(12)
+    ascii_lut = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.integers(0, 4, size=320)
+    chars = np.zeros((30, 320), dtype=np.uint8)
+    for i in range(30):
+        s = base.copy()
+        s[rng.integers(0, 320, size=4)] = rng.integers(0, 4, size=4)
+        chars[i] = ascii_lut[s]
+    res = mcdpd.DesignEngine(mcdpd.DesignParams(
+        coverage=0.5, min_product=100, coordinate="2,3,-1",
+        algo="v2")).design([">v%d" % i for i in range(30)], chars)
+    assert res and all(hasattr(r, "degeneracy") for r in res)
 
 
 def test_fork_safe_tracks_cuda(monkeypatch):

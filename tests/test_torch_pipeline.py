@@ -159,10 +159,26 @@ def test_scan_cli_equals_jax(tmp_path, scan_inputs):
 
 
 def test_cli_unported_subcommands_exit_2(capsys):
+    """Every subcommand is ported: the port's CLI dispatches each of the
+    JAX package's subcommands to a function of its own, and only an
+    unknown subcommand exits 2."""
+    import importlib
+    import re
+    from multiprime_tpu.cli import main as jcli
+    jax_cmds = set(re.findall(r'cmd == "([a-z0-9-]+)"',
+                              open(jcli.__file__).read()))
+    assert len(jax_cmds) == 22 and set(tcli.COMMANDS) == jax_cmds
+    for cmd, (module, name) in tcli.COMMANDS.items():
+        mod = tcli if module is None else importlib.import_module(
+            "multiprime_tpu_torch.cli." + module)
+        assert callable(getattr(mod, name)), cmd
     for cmd in ("solve", "pcr", "specificity", "tm"):
-        assert tcli.main([cmd, "-i", "x"]) == 2
-        assert "not ported yet" in capsys.readouterr().out
+        with pytest.raises(SystemExit) as exc:         # argparse: no -o
+            tcli.main([cmd, "-i", "x", "--nonsense"])
+        assert exc.value.code == 2
+        assert "not ported yet" not in capsys.readouterr().out
     assert tcli.main(["nonsense"]) == 2
+    assert "unknown subcommand: nonsense" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
