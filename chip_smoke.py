@@ -65,7 +65,25 @@ the final line):
    `nondimer-filter`, card vs host backend, byte-identical;
 13. `onestep` on the largest family cluster, card vs host backend, into the
    same path, every file byte-identical;
-14. the kernels line.
+14. the mesh on one card (a 2 x 2 Mesh of cuda:0): design_stats_blocks_
+   sharded on phase 10's cluster equal block for block to
+   design_stats_blocks, coverage_counts_sharded equal to an unsharded sum
+   of match_counts, scan_hits under use_mesh on phase 5's inputs equal
+   tuple for tuple to the unsharded device scan, and `run` in process
+   under the mesh with --stage-a device on a cut corpus (2 families x 1000
+   members + 20 singletons) equal byte for byte to the same run without
+   it;
+15. `run --profile` through the CLI on the cut corpus: the tree equal to
+   phase 14's unprofiled run, a trace written, and the share of the run
+   during which a CUDA kernel ran;
+16. the crossover: the constants of utils/link.py fitted on this card, and
+   the side "auto" picks for phases 4, 5 and 11's scans and the 21k design
+   stage beside the measured time of both sides;
+17. the kernels line.
+
+Every phase that drives the card's path holds its scans to the device
+(MPTPU_FORCE_BACKEND=device, or an explicit backend): the crossover may
+give them to the host.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -104,6 +122,16 @@ def fail(msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def device_env():
+    """This checkout first on the path, and every auto scan policy held to
+    the device (MPTPU_FORCE_BACKEND): the crossover may give a run's scan
+    to the host, and a phase that drives the card's path must not."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env["MPTPU_FORCE_BACKEND"] = "device"
+    return env
 
 
 def cuda_ms(fn, iters):
@@ -478,8 +506,7 @@ def phase_run(args, report, work):
             time.time() - t0, " [CUT from 20 x 1000 + 1000]" if cut else ""))
     res = os.path.join(work, "res")
     log_path = os.path.join(work, "run.log")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env = device_env()
     nproc = os.cpu_count() or 1
     cmd = [sys.executable, "-m", "multiprime_tpu_torch.cli.main", "run",
            "-i", fa, "-r", res, "--device", DEVICE, "--pcr-products",
@@ -621,8 +648,8 @@ def phase_scan(args, report, work, res):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     rc = cli.main(["scan", "-i", primers, "-r", sub, "-l", "18", "-t", "1",
-                   "-m", "4", "-s", "50,2000", "-o", out4, "--device",
-                   DEVICE])
+                   "-m", "4", "-s", "50,2000", "-o", out4, "--backend",
+                   "device", "--device", DEVICE])
     torch.cuda.synchronize()
     wall4 = time.time() - t0
     peak4 = torch.cuda.max_memory_allocated()
@@ -995,8 +1022,7 @@ def phase_device_run(args, report, work, res):
     cfg = os.path.join(work, "device_align.yaml")
     with open(cfg, "w") as f:
         f.write("align_backend: centerstar-device\n")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env = device_env()
     nproc = os.cpu_count() or 1
     cmd = [sys.executable, "-m", "multiprime_tpu_torch.cli.main", "run",
            "-c", cfg, "-i", os.path.join(work, "scale21k.fa"), "-r", res,
@@ -1063,6 +1089,32 @@ def device_profile(fn):
     return len(events), busy_us / 1e3
 
 
+def kernel_breakdown(fn, top=8):
+    """{CUDA kernel name (cut to 60 characters): [device ms, launches]} of
+    one fn() call from torch.profiler, the top kernels by time, or None
+    where the profiler gives no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except (RuntimeError, AttributeError) as e:
+        say("  torch.profiler gave no device events: %s" % e)
+        return None
+    out = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            k = e.name[:60]
+            ms_, n = out.get(k, (0.0, 0))
+            out[k] = (ms_ + (e.time_range.end - e.time_range.start) / 1e3,
+                      n + 1)
+    ranked = sorted(out.items(), key=lambda kv: -kv[1][0])[:top]
+    return {k: [round(v[0], 4), v[1]] for k, v in ranked} or None
+
+
 def timed(fn, reps=1):
     """(result, mean host-clock ms, peak device MiB) of fn() after one
     warm-up call, synchronised."""
@@ -1090,6 +1142,11 @@ def with_indels(rng, seq):
         else:
             s[at:at] = list(rng.choice(list("ACGT"), size=n))
     return "".join(s)
+
+
+# phase 10 profiles one Gotoh block and one refine block cut to this many
+# center bases / columns (a third of the corpus's 900)
+PROFILE_DEPTH = 300
 
 
 def phase_device_ops(args, report, res):
@@ -1205,19 +1262,23 @@ def phase_device_ops(args, report, res):
     t0 = time.perf_counter()
     native.gotoh_ops_batch(c, block)
     native_ms = (time.perf_counter() - t0) * 1e3
+    # profiled at a cut depth: torch.profiler's processing grows with the
+    # launches, one group a DP row of the center
     prof = device_profile(lambda: adev.align_ops_batch_device(
-        c, block, as_codes=True, device=dev))
+        c[:PROFILE_DEPTH], [b[:PROFILE_DEPTH] for b in block],
+        as_codes=True, device=dev))
     lbs = [len(b) for b in block]
     out["align_ops_batch_device"] = {
         "members_checked": len(members), "la": len(c), "M": len(block),
         "lb_max": max(lbs), "ms_per_block": gotoh_ms,
         "native_ms_per_block": native_ms, "peak_mib": gotoh_peak,
-        "profile_one_block": prof}
+        "profile_one_block_cut": prof, "profile_depth": PROFILE_DEPTH}
     say("phase 10 align_ops_batch_device: %d members == native; one block "
         "la=%d M=%d lb_max=%d: %.1f ms on the card, native %.1f ms (%d host "
-        "threads); peak %.1f MiB; %s (launches, device busy ms)"
+        "threads); peak %.1f MiB; cut to %d bases: %s (launches, device "
+        "busy ms)"
         % (len(members), len(c), len(block), max(lbs), gotoh_ms, native_ms,
-           os.cpu_count() or 1, gotoh_peak, prof))
+           os.cpu_count() or 1, gotoh_peak, PROFILE_DEPTH, prof))
 
     # the refine DP: one pass over the cluster's center-star rows
     rows = centerstar._merge_rows_vec(
@@ -1232,19 +1293,21 @@ def phase_device_ops(args, report, res):
              % name)
     n_blocks = -(-len(rows) // 256)
     prof = device_profile(lambda: refine.refine_pass(
-        rows[:256], backend="device", device=dev))
+        [r[:PROFILE_DEPTH] for r in rows[:256]], backend="device",
+        device=dev))
     out["refine_pass_device"] = {
         "M": len(rows), "C": len(rows[0]), "blocks": n_blocks,
         "ms_per_block": ref_ms / n_blocks,
         "native_ms_per_block": ref_native_ms / n_blocks,
-        "peak_mib": ref_peak, "profile_256_rows": prof,
+        "peak_mib": ref_peak, "profile_256_rows_cut": prof,
         "moved_rows": sum(a != b for a, b in zip(got_rows, rows))}
     say("phase 10 refine_pass_device: M=%d C=%d, %d blocks of 256 == native "
         "(%d rows moved); %.1f ms a block on the card, native %.1f ms; peak "
-        "%.1f MiB; 256 rows: %s (launches, device busy ms)"
+        "%.1f MiB; 256 rows cut to %d columns: %s (launches, device busy "
+        "ms)"
         % (len(rows), len(rows[0]), n_blocks, out["refine_pass_device"][
             "moved_rows"], ref_ms / n_blocks, ref_native_ms / n_blocks,
-           ref_peak, prof))
+           ref_peak, PROFILE_DEPTH, prof))
     say("phase 10 blocks a run: %d Stage-A blocks, %d Gotoh blocks, 0 refine "
         "blocks (refine_msa takes native)" % (design_blocks, gotoh_blocks))
     report["device_ops"] = out
@@ -1260,6 +1323,11 @@ BACKGROUND_LEN = 4000000
 PLANTS = 200
 STRADDLES = 30
 MIN_PLANTS_FOUND = 150
+# written before the card's runs (PERF.md): the compaction's ms on one
+# [16, 65,536] x 744 batch (the second prediction, for its int64-word
+# form), and specificity's peak MiB
+COMPACTION_PREDICTED_MS = (1.8, 2.8)
+PEAK_PREDICTED_MIB = (1000, 1500)
 
 # runs one subcommand of the port's CLI in this interpreter, then writes a
 # side file: exit code, wall, each scan_hits_long call's seconds and hits,
@@ -1299,9 +1367,9 @@ def run_cli(argv, work, name, host=False):
     env = dict(os.environ)
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     env["PYTHONHASHSEED"] = "0"
-    env.pop("MPTPU_FORCE_BACKEND", None)
-    if host:
-        env["MPTPU_FORCE_BACKEND"] = "host"
+    # the card side held to the device: the crossover may give these
+    # scans to the host
+    env["MPTPU_FORCE_BACKEND"] = "host" if host else "device"
     side = os.path.join(work, name + ".side.json")
     log_path = os.path.join(work, name + ".log")
     t0 = time.time()
@@ -1520,11 +1588,23 @@ def phase_specificity(args, report, work, primers):
         codes, tl, plen=18, max_hits=1 << 17), 10)
     compaction_bound = codes.numel() / HBM_BYTES_PER_S * 1e3
     out["compaction"] = {"ms": compaction_ms, "bound_ms": compaction_bound,
-                         "bytes": codes.numel()}
-    say("phase 11 compaction (find_hits_from_codes) of one batch %s: "
-        "%.4f ms, bytes bound %.4f ms; %d batches of %d segments a scan"
-        % (list(codes.shape), compaction_ms, compaction_bound,
-           out["batches_per_scan"], bs))
+                         "bytes": codes.numel(),
+                         "predicted_ms": COMPACTION_PREDICTED_MS}
+    say("phase 11 compaction (find_hits_from_codes, two levels) of one "
+        "batch %s: %.4f ms (predicted %.1f-%.1f), bytes bound %.4f ms; %d "
+        "batches of %d segments a scan"
+        % (list(codes.shape), compaction_ms, *COMPACTION_PREDICTED_MS,
+           compaction_bound, out["batches_per_scan"], bs))
+    out["compaction"]["by_kernel"] = kernel_breakdown(
+        lambda: ms.find_hits_from_codes(codes, tl, plen=18,
+                                        max_hits=1 << 17))
+    say("phase 11 compaction by CUDA kernel (device ms, launches): %s"
+        % json.dumps(out["compaction"]["by_kernel"]))
+    peaks = [out["runs"][n]["peak_bytes"] / 2 ** 20 for n in out["runs"]
+             if n.endswith("_device")]
+    out["peak_mib_predicted"] = PEAK_PREDICTED_MIB
+    say("phase 11 specificity peak device memory %s MiB (predicted "
+        "%d-%d)" % ([round(p, 1) for p in peaks], *PEAK_PREDICTED_MIB))
     del codes
     report["specificity"] = out
 
@@ -1645,6 +1725,510 @@ def phase_onestep(args, report, work, res):
     report["onestep"] = {"cluster": name, "files": n_files, "runs": sides}
 
 
+class forced_device:
+    """MPTPU_FORCE_BACKEND=device in this process for the block."""
+
+    def __enter__(self):
+        self.prev = os.environ.get("MPTPU_FORCE_BACKEND")
+        os.environ["MPTPU_FORCE_BACKEND"] = "device"
+
+    def __exit__(self, *exc):
+        os.environ.pop("MPTPU_FORCE_BACKEND", None)
+        if self.prev is not None:
+            os.environ["MPTPU_FORCE_BACKEND"] = self.prev
+
+
+# the mesh and profile phases' corpus: families, members, singletons of
+# phase 4's generator (real 900 bp members at full family size, fewer
+# families)
+CUT_CORPUS = (2, 1000, 20)
+
+
+def cut_corpus(args, work):
+    fa = os.path.join(work, "cut.fa")
+    if not os.path.exists(fa):
+        generate_corpus(fa, args.seed, *CUT_CORPUS)
+    return fa
+
+
+def phase_mesh(args, report, work, res, keys):
+    """A 2 x 2 Mesh of cuda:0: Stage A, the coverage counts and the sparse
+    scan sharded over it, each equal to its unsharded run; then `run` in
+    process under the mesh with device Stage A on the cut corpus, its tree
+    equal byte for byte to the same run without a mesh (kept for phase
+    15)."""
+    import torch
+    from multiprime_tpu_torch.models import mcdpd
+    from multiprime_tpu_torch.ops import design_scan
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.parallel import mesh as pmesh
+    from multiprime_tpu_torch.pipeline.driver import run_pipeline
+    from multiprime_tpu_torch.utils import iupac
+    from multiprime_tpu_torch.validate import scan as vscan
+    dev = torch.device(DEVICE)
+    mesh = pmesh.Mesh([[DEVICE + ":0"] * 2] * 2)
+    out = {"mesh": mesh.spec(), "shards": int(mesh.devices.size)}
+    # Stage A on phase 10's cluster
+    name = report["device_ops"]["cluster"]
+    _, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
+                                            name + ".tmsa"))
+    start, stop = mcdpd.DesignEngine(mcdpd.DesignParams(
+        coverage=0.7, min_product=150, coordinate="2,3,-1")).usable_span(
+            chars)
+    positions = np.arange(start, stop - 18)
+    masks = iupac.bytes_to_masks(chars)
+    t0 = time.perf_counter()
+    single = list(design_scan.design_stats_blocks(masks, positions,
+                                                  device=dev))
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = list(pmesh.design_stats_blocks_sharded(mesh, masks, positions))
+    sharded_s = time.perf_counter() - t0
+    if len(single) != len(sharded):
+        fail("design_stats_blocks_sharded gave %d blocks, unsharded %d"
+             % (len(sharded), len(single)))
+    for (pa, a), (pb, b) in zip(single, sharded):
+        if not np.array_equal(pa, pb) or sorted(a) != sorted(b) or any(
+                a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
+                for k in a):
+            fail("design_stats_blocks_sharded differs from "
+                 "design_stats_blocks on %s" % name)
+    out["stage_a"] = {"cluster": name, "N": int(masks.shape[0]),
+                      "W": len(positions), "blocks": len(single),
+                      "single_s": single_s, "sharded_s": sharded_s}
+    say("phase 14 mesh %s (%d shards): design_stats_blocks_sharded == "
+        "design_stats_blocks on %s (N=%d, W=%d, %d blocks; %.3f s sharded, "
+        "%.3f s unsharded)" % (mesh.spec(), mesh.devices.size, name,
+                               masks.shape[0], len(positions), len(single),
+                               sharded_s, single_s))
+    # coverage counts: 512 targets x phase 5's keys
+    _, seqs = vscan.parse_fasta(os.path.join(res, "Total_fa",
+                                             "scale21k.format.fa"))
+    p1h, s1h = pattern_onehots(ms, keys, 1)
+    t1h, lens = ms.encode_targets(seqs[:512])
+    ms.MATCH_COUNTS_LAUNCHES = 0
+    hits, covered = pmesh.coverage_counts_sharded(mesh, t1h, lens, p1h, s1h,
+                                                  mm=1, term=1)
+    torch.cuda.synchronize()
+    cov_launches = ms.MATCH_COUNTS_LAUNCHES
+    counts = ms.match_counts(t1h, p1h, device=dev)
+    ok = (18 - counts) <= 1
+    del counts
+    ok &= ms.match_counts(t1h, s1h, device=dev) >= 1
+    o_idx = torch.arange(ok.shape[1], device=dev)
+    ok &= ((o_idx[None, :] + 18) <= torch.from_numpy(lens).to(dev)[
+        :, None])[:, :, None]
+    want_hits = ok.sum(dim=(0, 1), dtype=torch.int64)
+    want_cov = ok.any(dim=2).any(dim=1).sum(dtype=torch.int64)
+    del ok
+    if not (torch.equal(hits, want_hits) and int(covered) == int(want_cov)):
+        fail("coverage_counts_sharded differs from the unsharded sum of "
+             "match_counts")
+    out["coverage"] = {"targets": 512, "patterns": int(p1h.shape[0]),
+                       "hits": int(hits.sum()), "covered": int(covered),
+                       "match_counts_launches": cov_launches}
+    say("phase 14 coverage_counts_sharded == unsharded match_counts sum: "
+        "512 targets x %d patterns, %d hits, %d targets covered; "
+        "match_counts launches %d" % (p1h.shape[0], int(hits.sum()),
+                                      int(covered), cov_launches))
+    # the sparse scan: phase 5's keys against the 21k targets, -m 1
+    params = dict(term_len=18, term=1, mm=1, backend="device")
+    t0 = time.time()
+    want = vscan.scan_hits(seqs, keys, vscan.ScanParams(**params), dev)
+    single_s = time.time() - t0
+    ms.HIT_CODES_LAUNCHES = 0
+    t0 = time.time()
+    with pmesh.use_mesh(mesh):
+        got = vscan.scan_hits(seqs, keys, vscan.ScanParams(**params), dev)
+    torch.cuda.synchronize()
+    sharded_s = time.time() - t0
+    scan_launches = ms.HIT_CODES_LAUNCHES
+    if vscan.LAST_BACKEND != "device-sharded" or scan_launches <= 0:
+        fail("the scan under the mesh ran %s with %d hit_codes launches"
+             % (vscan.LAST_BACKEND, scan_launches))
+    if got != want:
+        fail("scan_hits under the mesh differs from the unsharded device "
+             "scan (%d vs %d hits)" % (len(got), len(want)))
+    out["scan"] = {"targets": len(seqs), "patterns": len(keys),
+                   "hits": len(got), "sharded_s": sharded_s,
+                   "single_s": single_s, "hit_codes_launches": scan_launches}
+    say("phase 14 scan_hits under the mesh == unsharded device scan: %d "
+        "targets x %d keys, %d hits; %.2f s sharded, %.2f s unsharded; "
+        "hit_codes launches %d (%s)" % (len(seqs), len(keys), len(got),
+                                        sharded_s, single_s, scan_launches,
+                                        vscan.LAST_BACKEND))
+    # `run` in process on the cut corpus, with and without the mesh
+    fa = cut_corpus(args, work)
+    cut_res = os.path.join(work, "cut_res")
+    kw = dict(input_fa=fa, results_dir=cut_res, device=DEVICE,
+              stage_a="device", pcr_products="summary",
+              nproc=os.cpu_count() or 1)
+    with forced_device():
+        t0 = time.time()
+        run_pipeline(None, **kw)
+        single_s = time.time() - t0
+        os.rename(cut_res, cut_res + "_single")
+        ms.HIT_CODES_LAUNCHES = 0
+        t0 = time.time()
+        with pmesh.use_mesh(mesh):
+            pipe, _ = run_pipeline(None, **kw)
+        mesh_s = time.time() - t0
+        run_launches = ms.HIT_CODES_LAUNCHES
+    backends = pipe._backends()
+    served = backends["stage_a_served"]
+    if set(served) != {"device-sharded"} or run_launches <= 0 \
+            or backends.get("scan_backend") != "device-sharded":
+        fail("the run under the mesh: Stage A served %s, scan %s, %d "
+             "hit_codes launches" % (served, backends.get("scan_backend"),
+                                     run_launches))
+    diff = tree_diff(cut_res + "_single", cut_res)
+    if diff is not None:
+        fail("the run under the mesh wrote %s unlike the run without" % diff)
+    n_files = sum(len(n) for _, _, n in os.walk(cut_res))
+    shutil.rmtree(cut_res)
+    out["run"] = {"files": n_files, "mesh_s": mesh_s, "single_s": single_s,
+                  "stage_a_served": served,
+                  "hit_codes_launches": run_launches}
+    say("phase 14 run under the mesh (--stage-a device, nproc=%d, the "
+        "workers handed the mesh): tree == the run without it (%d files); "
+        "%.1f s with the mesh, %.1f s without; Stage A served %s, scan %s, "
+        "hit_codes launches %d" % (kw["nproc"], n_files, mesh_s, single_s,
+                                   json.dumps(served),
+                                   backends["scan_backend"], run_launches))
+    report["mesh"] = out
+
+
+def busy_share(trace_path):
+    """From a torch.profiler trace: (the run's span in s: its
+    "run_pipeline" range, else the span of all events; the union of CUDA
+    kernel intervals in s, the same with memory copies and sets,
+    kernels)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if "ts" in e and "dur" in e]
+
+    def union(spans):
+        total, end = 0.0, None
+        for a, b in sorted(spans):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total
+    kern = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "kernel"]
+    dev = kern + [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+    runs = [e["dur"] for e in events if e.get("name") == "run_pipeline"]
+    span = runs[0] if runs else (max(e["ts"] + e["dur"] for e in events)
+                                 - min(e["ts"] for e in events))
+    return span / 1e6, union(kern) / 1e6, union(dev) / 1e6, len(kern)
+
+
+def phase_profile(args, report, work):
+    """`run --profile` through the CLI on the cut corpus into phase 14's
+    path: the tree equal to phase 14's run without a mesh (but
+    pipeline_metrics.json), a trace written, and the share of the run
+    during which a CUDA kernel ran."""
+    fa = cut_corpus(args, work)
+    cut_res = os.path.join(work, "cut_res")
+    trace = os.path.join(work, "trace")
+    cmd = [sys.executable, "-m", "multiprime_tpu_torch.cli.main", "run",
+           "-i", fa, "-r", cut_res, "--device", DEVICE, "--stage-a",
+           "device", "--pcr-products", "summary", "--profile", trace]
+    log_path = os.path.join(work, "run_profile.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        rc = subprocess.run(cmd, cwd=HERE, env=device_env(), stdout=log,
+                            stderr=subprocess.STDOUT).returncode
+    wall = time.time() - t0
+    if rc != 0:
+        with open(log_path) as log:
+            fail("run --profile exited %d:\n%s" % (rc, log.read()[-4000:]))
+    diff = tree_diff(cut_res + "_single", cut_res)
+    if diff is not None:
+        fail("run --profile wrote %s unlike the run without it" % diff)
+    traces = glob.glob(os.path.join(trace, "*.pt.trace.json"))
+    if not traces:
+        fail("run --profile wrote no trace under %s" % trace)
+    span, kern_s, dev_s, n_kern = busy_share(traces[0])
+    with open(os.path.join(cut_res, "pipeline_metrics.json")) as f:
+        timings = json.load(f)["timings_s"]
+    out = {"process_s": wall, "trace_bytes": os.path.getsize(traces[0]),
+           "trace_span_s": span, "kernel_busy_s": kern_s,
+           "device_busy_s": dev_s, "kernels": n_kern,
+           "kernel_share": kern_s / span if span else 0.0,
+           "device_share": dev_s / span if span else 0.0,
+           "timings_s": timings}
+    say("phase 15 run --profile (nproc 1): tree == the unprofiled run's; "
+        "trace %s (%.1f MB); process %.1f s, trace span %.2f s; %d CUDA "
+        "kernels busy %.3f s = %.2f%% of the run (with copies and sets "
+        "%.3f s = %.2f%%); stages %s" % (
+            os.path.basename(traces[0]), out["trace_bytes"] / 1e6, wall,
+            span, n_kern, kern_s, 100 * out["kernel_share"], dev_s,
+            100 * out["device_share"], json.dumps(timings)))
+    report["profile"] = out
+
+
+class Sized:
+    """A target of n bases, for the estimators (they read len only)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+
+def phase_crossover(args, report, work, res, keys):
+    """The constants of utils/link.py measured on this card: the link,
+    a CUDA context's start, the host scans and encode, the device scan of
+    a resident corpus, and the design call with host and device Stage A;
+    then, for the scans and the design stage of the earlier phases, the
+    side the committed constants pick beside the measured time of both."""
+    import torch
+    from multiprime_tpu_torch import native
+    from multiprime_tpu_torch.models import mcdpd
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.utils import link as linkmod
+    from multiprime_tpu_torch.validate import scan as vscan
+    dev = torch.device(DEVICE)
+    fit, link = {}, {}
+    # the link: 64 MiB each way, pageable host memory; a synced tiny copy
+    host = np.ones(64 << 20, np.uint8)
+    torch.from_numpy(host).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = torch.from_numpy(host).to(dev)
+    torch.cuda.synchronize()
+    link["up_mbps"] = host.nbytes / (time.perf_counter() - t0) / 1e6
+    t0 = time.perf_counter()
+    d.cpu()
+    link["down_mbps"] = host.nbytes / (time.perf_counter() - t0) / 1e6
+    tiny = torch.zeros(1, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        tiny.add_(1).item()
+    link["rtt_ms"] = link["dispatch_ms"] = (time.perf_counter() - t0) / 200 \
+        * 1e3
+    del d
+    # a CUDA context and the hit-code library in a fresh process
+    code = ("import time, torch\nt0 = time.perf_counter()\n"
+            "torch.zeros(1, device='cuda')\ntorch.cuda.synchronize()\n"
+            "t1 = time.perf_counter()\n"
+            "from multiprime_tpu_torch.ops import _cuda\n"
+            "_cuda.load('hit_codes')\n"
+            "print(t1 - t0, time.perf_counter() - t1)\n")
+    starts = []
+    for _ in range(2):
+        got = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                             env=device_env(), capture_output=True,
+                             text=True)
+        if got.returncode != 0:
+            fail("the CUDA start probe exited %d: %s" % (got.returncode,
+                                                         got.stderr[-2000:]))
+        starts.append([float(v) for v in got.stdout.split()[-2:]])
+    fit["cuda_init_s"] = sum(s[0] for s in starts) / len(starts)
+    fit["kernel_load_s"] = sum(s[1] for s in starts) / len(starts)
+    fit["kernel_build_s"] = report["build_s"]
+    # host scans of the 21k targets: the seed scan (phase 5's 742 keys),
+    # the mask walk (the run's core set) and the NumPy scan (a subset)
+    _, seqs = vscan.parse_fasta(os.path.join(res, "Total_fa",
+                                             "scale21k.format.fa"))
+    bases = sum(map(len, seqs))
+    core_fa = os.path.join(res, "Core_primers_set",
+                           "core_final_maxprimers_set.fa")
+    if not os.path.exists(core_fa):
+        core_fa = os.path.join(res, "Primers_set", "final_maxprimers_set.fa")
+    pats, _, core_keys, _ = vscan.expand_primer_fasta(core_fa, 18, None,
+                                                      with_keys=True)
+    core = core_keys if core_keys is not None else pats
+
+    def host_scan(targets, patterns):
+        t0 = time.perf_counter()
+        vscan.scan_hits(targets, patterns, vscan.ScanParams(
+            mm=1, term=1, backend="numpy"), dev)
+        return time.perf_counter() - t0
+    seed_s = host_scan(seqs, keys)
+    spec = report["specificity"]
+    bg_bases = sum(background_segments(spec["lengths"]))
+    host_runs = [r for n, r in spec["runs"].items() if n.endswith("_host")]
+    seed_parts = [(bases, seed_s)] + [(bg_bases, c["s"]) for r in host_runs
+                                      for c in r["scans"]]
+    fit["host_seed_bases_per_s"] = (sum(b for b, _ in seed_parts)
+                                    / sum(s for _, s in seed_parts))
+    mask_s = host_scan(seqs, core)
+    fit["host_mask_basepatterns_per_s"] = bases * len(core) / mask_s
+    available = native.available
+    native.available = lambda: False
+    try:
+        sub = seqs[:1000]
+        numpy_s = host_scan(sub, core)
+    finally:
+        native.available = available
+    fit["numpy_basepatterns_per_s"] = sum(map(len, sub)) * len(core) / numpy_s
+    # the corpus's preparation before its first device scan: phase 11's
+    # first (F) scan less its second (R, on the uploaded corpus) and a
+    # fresh process's CUDA start; encoding alone is printed beside it
+    longest = max(map(len, seqs))
+    pad_len = max(-longest % 512 + longest, 512)
+    t0 = time.perf_counter()
+    for lo in range(0, len(seqs), 2048):
+        ms.encode_target_masks(seqs[lo:lo + 2048], length=pad_len)
+    encode_alone = bases / (time.perf_counter() - t0)
+    dev_runs = [r for n, r in spec["runs"].items() if n.endswith("_device")]
+    prep_s = [r["scans"][0]["s"] - r["scans"][1]["s"] - fit["cuda_init_s"]
+              - fit["kernel_load_s"] for r in dev_runs]
+    fit["host_encode_bases_per_s"] = bg_bases * len(prep_s) / sum(prep_s)
+    say("phase 16 corpus preparation %s s before the first scan of %d "
+        "bases; encoding alone %.4g bases/s" % (
+            [round(s, 3) for s in prep_s], bg_bases, encode_alone))
+    # the device scan of a resident corpus (21k x 742 keys, and phase 11's
+    # second scans, which reuse the uploaded background)
+    params = vscan.ScanParams(mm=1, term=1, backend="device")
+    with vscan.shared_corpus(params):
+        t0 = time.perf_counter()
+        vscan.scan_hits(seqs, keys, params, dev)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vscan.scan_hits(seqs, keys, params, dev)
+        warm_s = time.perf_counter() - t0
+    sync_s = link["dispatch_ms"] / 1e3
+    dev_parts = [(2.0 * bases * len(keys) * 72, warm_s - sync_s)]
+    dev_parts += [(2.0 * bg_bases * r["scans"][1]["patterns"] * 72,
+                   r["scans"][1]["s"] - sync_s) for r in dev_runs]
+    fit["device_macs_per_s"] = (sum(m for m, _ in dev_parts)
+                                / sum(s for _, s in dev_parts))
+    say("phase 16 device scan of the 21k targets x %d keys: %.3f s with "
+        "the corpus's encode and upload, %.3f s resident" % (
+            len(keys), cold_s, warm_s))
+    # the design call with host and device Stage A (CUDA warm): the three
+    # largest family clusters, three mid ones and 30 singletons
+    with open(os.path.join(res, "cluster.txt")) as f:
+        sizes = sorted((int(n), name) for name, n in
+                       (line.split("\t") for line in f.read().splitlines()[1:]))
+    fams = [s for s in sizes if s[0] > 1]
+    sample = fams[-3:] + fams[len(fams) // 2:len(fams) // 2 + 3] + [
+        s for s in sizes if s[0] == 1][:30]
+    rows = []
+    for _, name in sample:
+        ids, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
+                                                  name + ".tmsa"))
+        walls = {}
+        for side in ("host", "device"):
+            eng = mcdpd.DesignEngine(mcdpd.DesignParams(stage_a=side,
+                                                        device=dev))
+            try:
+                start, stop = eng.usable_span(chars)
+            except ValueError:
+                break
+            t0 = time.perf_counter()
+            eng.design(ids, chars)
+            walls[side] = time.perf_counter() - t0
+        if len(walls) == 2:
+            w = max(stop - 18 - start, 0)
+            rows.append((chars.shape[0], w, walls["host"], walls["device"]))
+    cells = sum(n * w * 18 for n, w, _, _ in rows)
+    blocks = sum(max(1, -(-w // 512)) for _, w, _, _ in rows)
+    fit["host_stagea_cells_per_s"] = cells / sum(r[2] for r in rows)
+    fit["device_stagea_block_s"] = report["device_ops"][
+        "design_stats_blocks"]["ms_per_block"] / 1e3
+    rest = (sum(r[3] for r in rows) - blocks * (
+        sync_s + fit["device_stagea_block_s"])
+        - cells / (link["down_mbps"] * 1e6))
+    fit["device_stagea_cells_per_s"] = cells / max(rest, 1e-6)
+    say("phase 16 fitted RATES " + json.dumps(fit))
+    say("phase 16 fitted LINK " + json.dumps(link))
+    say("phase 16 committed RATES " + json.dumps(linkmod.RATES))
+    # the split of the device run's extra design time
+    host_design = report["run"]["timings_s"].get("design", 0.0)
+    dev_design = report["device_run"]["timings_s"].get("design", 0.0)
+    nproc = report["device_run"]["nproc"]
+    starts_s = nproc * fit["cuda_init_s"]
+    say("phase 16 design stage summed over workers: host Stage A %.1f s, "
+        "device %.1f s; of the %.1f s more, %d spawned workers' CUDA "
+        "starts %.1f s, per-window work %.1f s (sample: %d clusters, "
+        "device %.3f s against host %.3f s)" % (
+            host_design, dev_design, dev_design - host_design, nproc,
+            starts_s, dev_design - host_design - starts_s, len(rows),
+            sum(r[3] for r in rows), sum(r[2] for r in rows)))
+    # the side "auto" picks with the committed constants, beside both times
+    fresh = linkmod.RATES["cuda_init_s"] + linkmod.RATES["kernel_load_s"]
+    real_startup = linkmod.device_startup_s
+
+    def pick(targets, patterns, startup, resident=False):
+        p = vscan.ScanParams(mm=1, term=1)
+        if resident:
+            p.corpus_cache = {"resident": True}
+        longest = max(map(len, targets))
+        pad = max(-longest % 512 + longest, 512)
+        linkmod.device_startup_s = lambda **kw: startup
+        try:
+            side = vscan._auto_backend(targets, patterns, 18, pad,
+                                       -(-len(patterns) // 8) * 8, p)
+        finally:
+            linkmod.device_startup_s = real_startup
+        return "host" if side == "numpy" else side
+    picks = {}
+    picks["phase 4 scan (core set)"] = (
+        pick(seqs, core, fresh), report["run"]["timings_s"].get("scan"),
+        report["run"]["host_rescan_s"])
+    picks["phase 5 scan"] = (pick(seqs, keys, fresh),
+                             report["scan"]["wall_s"]["device"],
+                             report["scan"]["wall_s"]["numpy"])
+    bg = [Sized(seg) for seg in background_segments(spec["lengths"])]
+    exh = spec["runs"]
+    picks["64 Mb F scan"] = (pick(bg, keys, fresh),
+                             exh["spec_exhaustive_device"]["scans"][0]["s"],
+                             exh["spec_exhaustive_host"]["scans"][0]["s"])
+    picks["64 Mb R scan"] = (pick(bg, keys, 0.0, resident=True),
+                             exh["spec_exhaustive_device"]["scans"][1]["s"],
+                             exh["spec_exhaustive_host"]["scans"][1]["s"])
+    n_dev = 0
+    for n, name in sizes:
+        _, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
+                                                name + ".tmsa"))
+        try:
+            start, stop = mcdpd.DesignEngine(
+                mcdpd.DesignParams()).usable_span(chars)
+        except ValueError:
+            continue
+        linkmod.device_startup_s = lambda **kw: 0.0
+        try:
+            n_dev += mcdpd.resolve_stage_a(
+                chars.shape[0], max(stop - 18 - start, 0), 18) == "device"
+        finally:
+            linkmod.device_startup_s = real_startup
+    picks["21k design Stage A"] = (
+        "device on %d of %d clusters" % (n_dev, len(sizes)), dev_design,
+        host_design)
+    for what, (side, dev_t, host_t) in picks.items():
+        say("phase 16 auto picks %s for the %s: measured device %s s, host "
+            "%s s" % (side, what, dev_t, host_t))
+    report["crossover"] = {"fit": fit, "link": link,
+                           "committed": dict(linkmod.RATES),
+                           "picks": picks, "design_sample": rows,
+                           "design_split": {"host_s": host_design,
+                                            "device_s": dev_design,
+                                            "cuda_starts_s": starts_s}}
+
+
+def background_segments(lengths, seg_len=1 << 16, overlap=17):
+    """The segment lengths scan_hits_long cuts the background into."""
+    stride = seg_len - overlap
+    out = []
+    for n in lengths:
+        off = 0
+        while True:
+            out.append(min(seg_len, n - off))
+            if off + seg_len >= n:
+                break
+            off += stride
+    return out
+
+
 def kernel_entry(m, name, source, replaces):
     """One kernel's entry of the kernels line, from its measurements."""
     return {"name": name, "route": "cuda",
@@ -1701,23 +2285,34 @@ def main():
         phase(11, phase_specificity, work, primers)
         phase(12, phase_update, work, res)
         phase(13, phase_onestep, work, res)
+        phase(14, phase_mesh, work, res, keys)
+        phase(15, phase_profile, work)
+        phase(16, phase_crossover, work, res, keys)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["hit_codes"]["launches"] = launches
-    # the launches of every path that drove the kernel, each its own process
+    # the launches of every path that drove the kernel, each counted from 0
+    # over that path alone (the CLI paths each in a process of its own)
     spec = report["specificity"]["runs"]
+    mesh = report["mesh"]
     by_path = {"run": launches,
                "specificity": sum(spec[n]["launches"] for n in spec
                                   if n.endswith("_device")),
                "update": report["update"]["device"]["update"]["launches"],
-               "onestep": report["onestep"]["runs"]["device"]["launches"]}
+               "onestep": report["onestep"]["runs"]["device"]["launches"],
+               "mesh_scan": mesh["scan"]["hit_codes_launches"],
+               "mesh_run": mesh["run"]["hit_codes_launches"]}
     kernels = {"kernels": [
         dict(kernel_entry(report["hit_codes"], "hit_codes", "hit_codes.cu",
                           "multiprime_tpu/ops/mismatch_scan.py:173"),
              launches_by_path=by_path),
-        kernel_entry(report["match_counts"], "match_counts",
-                     "match_counts.cu",
-                     "multiprime_tpu/ops/mismatch_scan.py:150"),
+        dict(kernel_entry(report["match_counts"], "match_counts",
+                          "match_counts.cu",
+                          "multiprime_tpu/ops/mismatch_scan.py:150"),
+             launches_by_path={
+                 "dimer": report["match_counts"]["launches"],
+                 "mesh_coverage":
+                     mesh["coverage"]["match_counts_launches"]}),
         kernel_entry(report["hit_window_bitmap"], "hit_window_bitmap",
                      "hit_window_bitmap.cu",
                      "multiprime_tpu/ops/mismatch_scan.py:315")]}

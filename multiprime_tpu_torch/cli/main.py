@@ -32,8 +32,9 @@ multiprime_tpu_torch.cli.main <cmd>):
 run, design, scan, specificity, update and onestep take --device
 {cuda,cpu} (default cuda; asking for cuda without a GPU is an error; cpu
 runs the kernels' plain PyTorch versions).  The others are host code.
-More than one GPU (run/onestep --devices N > 1) is not ported yet
-(ROADMAP.md: parallel/mesh.py -> torch.distributed).
+run and onestep take --devices N: a mesh of N devices of --device's type
+(cuda:0..N-1, which must be present; or N CPU entries) that shards the
+device Stage A and the coverage scan, with the same outputs as one device.
 """
 
 import importlib
@@ -110,17 +111,21 @@ def _run(argv):
                         "targets, core_V15 engine)")
     p.add_argument("--coverage", type=float)
     p.add_argument("--devices", type=int, metavar="N",
-                   help="number of GPUs (default 1; more is not ported yet)")
+                   help="shard the device design Stage A and the coverage "
+                        "scan over a mesh of N devices of --device's type "
+                        "(default 1; N GPUs must be present)")
     p.add_argument("--stage-a", choices=["host", "device", "auto"],
                    dest="stage_a",
                    help="design Stage-A backend (default: host/config): "
                         "device runs it as torch ops on --device, auto "
-                        "takes the device")
+                        "takes the side the measured crossover picks")
     p.add_argument("--cluster-shard", dest="cluster_shard", metavar="i/P",
                    help="run only every P-th cluster of the fan-out "
                         "(multi-host: each host runs its shard against a "
                         "shared results dir; any later run completes the "
-                        "solve/validate tail via file-level resume)")
+                        "solve/validate tail via file-level resume; "
+                        "defaults to this process's rank/world size under "
+                        "an initialised torch.distributed group)")
     p.add_argument("--pcr-products", dest="pcr_products",
                    choices=["full", "gzip", "summary"],
                    help="per-pair PCR-product FASTA bodies (default full; "
@@ -128,6 +133,12 @@ def _run(argv):
     p.add_argument("--nproc", type=int,
                    help="host worker processes of the per-cluster fan-out "
                         "(default 1/config)")
+    p.add_argument("--profile", metavar="DIR",
+                   help="capture a torch.profiler trace of the whole run "
+                        "(CPU, and CUDA on a GPU; TensorBoard trace files "
+                        "under DIR) beside the per-stage wall-clock timings "
+                        "in pipeline_metrics.json; the run takes one "
+                        "process")
     _device_flag(p, default=None)
     args = p.parse_args(argv)
     # only explicit flags override the config file
@@ -146,10 +157,37 @@ def _run(argv):
         overrides["design_backend"] = args.backend
     if args.variant is not None:
         overrides["pipeline_variant"] = args.variant
-    pipe, log = run_pipeline(args.config, **overrides)
+    if args.profile:
+        pipe, log = _profiled(args.profile, args.device, args.config,
+                              overrides)
+    else:
+        pipe, log = run_pipeline(args.config, **overrides)
     for name, status, dt in log:
         print("%-20s %-8s %ss" % (name, status, dt))
     return 0
+
+
+def _profiled(trace_dir, device, config, overrides):
+    """run_pipeline inside torch.profiler: CPU activities, plus CUDA when
+    the run's device is a GPU; the trace is written under trace_dir by
+    tensorboard_trace_handler.  The run takes one process (nproc = 1): the
+    profiler does not follow the cluster pool's workers."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                tensorboard_trace_handler)
+    from ..pipeline.driver import PipelineConfig, run_pipeline
+    if device is None:
+        device = (PipelineConfig.from_yaml(config) if config
+                  else PipelineConfig()).device
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    overrides = dict(overrides, nproc=1)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        # one range over the whole run: its span is the run's wall
+        with record_function("run_pipeline"):
+            return run_pipeline(config, **overrides)
 
 
 def _solve(argv):
@@ -436,10 +474,8 @@ def _onestep(argv):
     get_multiPrime's main() — then off_targets on the pair fasta with
     term_length = full primer length).  The scan runs on --device."""
     import argparse
-    import json
-    from ..models import mcdpd, pairing
+    import contextlib
     from ..utils import link as linkmod
-    from ..validate import scan as vscan
     p = argparse.ArgumentParser(prog="multiprime_tpu_torch onestep")
     p.add_argument("-i", "--input", required=True, help="MSA fasta")
     p.add_argument("-r", "--ref", required=True,
@@ -463,18 +499,26 @@ def _onestep(argv):
     p.add_argument("-a", "--away", type=int, default=4)
     p.add_argument("--algo", default="v20", choices=["v20", "v16", "v15", "v2"])
     p.add_argument("--devices", type=int, default=1,
-                   help="number of GPUs (default 1; more is not ported yet)")
+                   help="shard the coverage scan (and device Stage A) over "
+                        "a mesh of N devices of --device's type, like run "
+                        "--devices (N GPUs must be present)")
     p.add_argument("--out1", required=True, help="design table")
     p.add_argument("-o", "--out2", required=True, help="candidate pairs .txt")
     _device_flag(p)
     a = p.parse_args(argv)
-    if a.devices != 1:
-        raise NotImplementedError(
-            "onestep --devices %d: only one GPU is ported; more "
-            "(parallel/mesh.py -> torch.distributed) is not ported to "
-            "PyTorch yet (see ROADMAP.md)" % a.devices)
     device = linkmod.resolve_device(a.device)
+    mesh_ctx = contextlib.nullcontext()
+    if a.devices and a.devices > 1:
+        from ..parallel import mesh as pmesh
+        mesh_ctx = pmesh.use_mesh(pmesh.make_mesh(a.devices, device=device))
+    with mesh_ctx:
+        return _onestep_body(a, device)
 
+
+def _onestep_body(a, device):
+    import json
+    from ..models import mcdpd, pairing
+    from ..validate import scan as vscan
     size = tuple(int(x) for x in a.size.split(","))
     ids, chars = mcdpd.parse_msa(a.input)
     # reference bug preserved: onestep's NN_degenerate gets the full

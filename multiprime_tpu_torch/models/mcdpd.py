@@ -19,8 +19,8 @@ semantics.  The computation is split into two stages:
   inline notes).
 
 Window positions are independent, so Stage A shards naturally over a device
-mesh (sequence axis -> psum of count tensors, window axis -> data parallel);
-see multiprime_tpu.parallel.
+mesh (sequence axis -> sum of count tensors, window axis -> data parallel);
+see parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -198,12 +198,24 @@ class DesignParams:
 
 
 def resolve_stage_a(n_seqs, n_windows, plen):
-    """The Stage-A backend of "auto": MPTPU_FORCE_BACKEND when set, else
-    the device.  The JAX package weighed a TPU link model here; the H100
-    crossover is not measured yet (ROADMAP.md), so "auto" takes the device.
-    """
+    """The Stage-A backend of "auto": the measured crossover of
+    utils/link.py (constants from an H100).  The design call with host
+    Stage A runs at a measured rate of window-cells a second; the device
+    call pays its start-up (a CUDA context in a fresh worker), one
+    launch-bound block of torch ops and one sync per 512 windows, the
+    patched windows' copy back, and its own per-cell rate.
+    MPTPU_FORCE_BACKEND overrides; outputs are identical either way
+    (tests/test_torch_design_scan.py)."""
     from ..utils import link as linkmod
-    return linkmod.forced_backend() or "device"
+    forced = linkmod.forced_backend()
+    if forced is not None:
+        return forced
+    t_host = linkmod.est_host_stagea_s(n_seqs, n_windows, plen)
+    startup = linkmod.device_startup_s(kernels=())
+    if t_host < 0.15 + startup:   # too small to be worth the device's
+        return "host"             # start-up
+    t_dev = startup + linkmod.est_device_stagea_s(n_seqs, n_windows, plen)
+    return "device" if t_dev < t_host else "host"
 
 
 def _build_covered_table(rounded):
@@ -750,12 +762,22 @@ class DesignEngine:
         (the device integers are exact; tests/test_torch_design_scan.py).
         """
         from ..ops import design_scan
+        from ..parallel import mesh as pmesh
         masks = iupac.bytes_to_masks(chars)
         done = 0
         results = []
-        blocks = design_scan.design_stats_blocks(
-            masks, positions, plen=self.p.primer_length,
-            variation=self.p.variation, device=self.p.device)
+        # an entered parallel.mesh context (run --devices N) shards Stage A
+        # over the (seq, win) mesh; the block stream is identical
+        mesh = pmesh.active_mesh()
+        if mesh is not None:
+            self.stage_a_used = "device-sharded"
+            blocks = pmesh.design_stats_blocks_sharded(
+                mesh, masks, positions, plen=self.p.primer_length,
+                variation=self.p.variation)
+        else:
+            blocks = design_scan.design_stats_blocks(
+                masks, positions, plen=self.p.primer_length,
+                variation=self.p.variation, device=self.p.device)
         for pos_block, stats in blocks:
             win_chars = iupac._MASK_TO_ASCII[stats["win"] & 15]  # [N, W, plen]
             gap_blk = (win_chars == ord("-")).sum(axis=2)
@@ -775,6 +797,8 @@ class DesignEngine:
             done += len(pos_block)
             if progress:
                 progress(done, len(positions))
+        from ..utils import link as linkmod
+        linkmod.mark_device_warm()
         return results
 
     def _design_parallel(self, extractor, positions, seq_ids, n, threshold):

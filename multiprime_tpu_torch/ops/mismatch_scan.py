@@ -465,6 +465,14 @@ def find_hits_bitmap(targets_1h, lengths, primers_1h, suffix_1h, *, mm=1,
             mis.astype(np.int32))
 
 
+# level-1 compaction block length, as in the JAX package's find_hits: the
+# per-block hit counts shrink the nonzero problem 64-fold before the exact
+# index extraction
+_BLK = 64
+# blocks counted a step: bounds the step's boolean temporary (128 MiB)
+_COUNT_BLOCKS = 1 << 21
+
+
 def find_hits_from_codes(codes, lengths, *, plen, max_hits):
     """Window-length mask + sparse compaction of hit codes [N, O, P]
     -> (hit_idx [max_hits] int64, n_hits (0-d int64), mismatches
@@ -472,22 +480,63 @@ def find_hits_from_codes(codes, lengths, *, plen, max_hits):
 
     hit_idx holds the ascending flat indices n * (O * P) + o * P + p of the
     first max_hits hits, -1 padding; n_hits counts all of them.  Stays on
-    the codes' device with no host sync.  Masks ``codes`` in place."""
-    n_out = codes.shape[1]
-    o_idx = torch.arange(n_out, device=codes.device)
-    outside = (o_idx[None, :] + plen) > lengths.to(codes.device)[:, None]
-    codes.masked_fill_(outside[:, :, None], 0)
+    the codes' device with no host sync.  Masks ``codes`` in place.
+
+    Two levels, as the JAX package's find_hits: hit counts of 64-element
+    blocks of the flat codes (the last block short), a nonzero over the
+    non-empty blocks, then an exact nonzero over the max_hits x 64
+    gathered candidates.  At most max_hits hits lie in at most max_hits
+    blocks, and blocks and offsets are enumerated ascending, so the result
+    is the flat nonzero's first max_hits hits.  The blocks are counted
+    _COUNT_BLOCKS at a time: no flat index tensor and no boolean mask of
+    the codes' size is ever built.
+
+    The full-size passes work on int64 words, eight codes each: the window
+    mask (when P is a multiple of 8), and the block counts, which sum a
+    block's eight words of 0/1 bytes (each byte lane <= 8, no carry) and
+    fold the lanes; int8 and bool element-wise kernels, and a cast before
+    the sum, cost several times more on the card."""
+    dev = codes.device
+    n, n_out, p = codes.shape
+    o_idx = torch.arange(n_out, device=dev)
+    outside = (o_idx[None, :] + plen) > lengths.to(dev)[:, None]
+    words = codes.is_contiguous() and p % 8 == 0 \
+        and codes.data_ptr() % 8 == 0
+    (codes.view(torch.int64) if words else codes).masked_fill_(
+        outside[:, :, None], 0)
+    total = codes.numel()
+    if total == 0:
+        none = torch.full((max_hits,), -1, dtype=torch.int64, device=dev)
+        return none, torch.zeros((), dtype=torch.int64, device=dev), \
+            none.clone()
     flat = codes.reshape(-1)
-    if flat.numel() == 0:
-        none = torch.full((max_hits,), -1, dtype=torch.int64,
-                          device=codes.device)
-        return none, torch.zeros((), dtype=torch.int64,
-                                 device=codes.device), none.clone()
-    hit = flat > 0
-    n_hits = hit.sum()
-    idx = torch.nonzero_static(hit, size=max_hits, fill_value=-1)[:, 0]
-    mism = torch.where(idx >= 0, flat[idx.clamp(min=0)].to(torch.int64) - 1,
-                       -1)
+    n_full = total // _BLK
+    blk_cnt = torch.empty(-(-total // _BLK), dtype=torch.int64, device=dev)
+    full = flat[:n_full * _BLK].view(n_full, _BLK)
+    for lo in range(0, n_full, _COUNT_BLOCKS):
+        hi = min(lo + _COUNT_BLOCKS, n_full)
+        torch.sum((full[lo:hi] != 0).view(torch.int64), dim=1,
+                  out=blk_cnt[lo:hi])
+    for shift in (32, 16, 8):           # fold the byte lanes into lane 0
+        blk_cnt += blk_cnt >> shift
+    blk_cnt &= 0xFF
+    if n_full < len(blk_cnt):
+        blk_cnt[n_full] = (flat[n_full * _BLK:] != 0).sum()
+    n_hits = blk_cnt.sum()
+    blk_idx = torch.nonzero_static(blk_cnt > 0, size=max_hits,
+                                   fill_value=-1)[:, 0]
+    # the candidates' flat indices, ascending; int32 as the flat index
+    # space stays under 2**31 (safe_batch_size)
+    cand = (blk_idx.to(torch.int32)[:, None] * _BLK
+            + torch.arange(_BLK, dtype=torch.int32, device=dev))
+    inside = (blk_idx >= 0)[:, None] & (cand < total)
+    vals = torch.where(inside, flat[cand.clamp(0, total - 1)], 0)
+    pos = torch.nonzero_static((vals > 0).reshape(-1), size=max_hits,
+                               fill_value=-1)[:, 0]
+    found = pos >= 0
+    at = pos.clamp(min=0)
+    idx = torch.where(found, cand.reshape(-1)[at].to(torch.int64), -1)
+    mism = torch.where(found, vals.reshape(-1)[at].to(torch.int64) - 1, -1)
     return idx, n_hits, mism
 
 

@@ -34,13 +34,18 @@ from dataclasses import dataclass, field
 import numpy as np
 
 
-def _set_native_threads(n):
+def _init_worker(n, mesh_spec=None):
     # pool worker initializer: divide the machine's cores between cluster
     # workers so native threaded kernels (gotoh_ops_batch, refine_realign)
-    # and torch's CPU ops never oversubscribe W workers x all cores.
+    # and torch's CPU ops never oversubscribe W workers x all cores; and
+    # enter the parent's device mesh, which a spawned worker does not
+    # inherit (else its device Stage A would run on one device)
     import torch
     os.environ["MPTPU_NATIVE_THREADS"] = str(n)
     torch.set_num_threads(n)
+    if mesh_spec is not None:
+        from ..parallel import mesh as pmesh
+        pmesh.use_mesh(pmesh.Mesh(mesh_spec)).__enter__()
 
 
 @dataclass
@@ -105,8 +110,10 @@ class PipelineConfig:
     # `mptpu run` matches `sh run.sh`)
     scan_final: bool = False
     nproc: int = 1
-    # number of accelerator devices; more than one is not ported yet
-    # (ROADMAP.md: parallel/mesh.py -> torch.distributed)
+    # number of devices of ``device``'s type: >1 builds a parallel.mesh
+    # Mesh over them (cuda:0..N-1, or N CPU entries) and shards the device
+    # Stage A and the coverage scan over it; outputs are byte-identical to
+    # devices=1.  N GPUs must be present, else the run raises.
     devices: int = 1
     # torch device of the coverage scan: "cuda" (default; raises without a
     # GPU) or "cpu" (the kernels' plain PyTorch versions)
@@ -118,7 +125,8 @@ class PipelineConfig:
     # the aggregate/solve tail when other shards' candidate files are still
     # missing; any later run over the same results_dir (e.g. on host 0, or
     # simply re-running without the flag) completes it through the normal
-    # file-level resume.  "" = all clusters.
+    # file-level resume.  "" = all clusters, or under an initialised
+    # torch.distributed group of more than one rank "{rank}/{world size}".
     cluster_shard: str = ""
     # "centerstar" (auto host/device), "centerstar-device", "centerstar-numpy",
     # "progressive" (UPGMA guide tree + profile-profile merges; with the
@@ -292,9 +300,10 @@ class Pipeline:
     # -- stages ----------------------------------------------------------------
     def run(self):
         if int(self.cfg.devices or 1) > 1:
-            raise NotImplementedError(
-                "devices > 1 (parallel/mesh.py -> torch.distributed) is not "
-                "ported to PyTorch yet (see ROADMAP.md)")
+            from ..parallel import mesh as pmesh
+            mesh = pmesh.make_mesh(int(self.cfg.devices), device=self.device)
+            with pmesh.use_mesh(mesh):
+                return self._run_body()
         return self._run_body()
 
     def _run_body(self):
@@ -517,12 +526,17 @@ class Pipeline:
         os.replace(cluster_txt + ".tmp", cluster_txt)
 
     def _resolve_cluster_shard(self):
-        """-> (index, count) or None, from the explicit "i/P" config (the
-        port reads no multi-process runtime).  Shards share results_dir:
-        every shard must see shard 0's files.  NFS caveat: the wait polls
-        os.path.exists, which needs close-to-open consistency — with
-        aggressive attribute caching (`actimeo`), visibility of shard 0's
-        rename can be delayed by up to the cache timeout."""
+        """-> (index, count) or None.  Explicit "i/P" config wins; under an
+        initialised torch.distributed process group of more than one rank
+        the default is this process's (rank, world size), so `run` in every
+        rank partitions the fan-out automatically.  The auto path requires
+        results_dir on SHARED storage (every rank must see shard 0's
+        files); ranks that never observe cluster.txt fail fast after a
+        short grace period (MPTPU_SHARD_WAIT_S, auto default 120 s) with a
+        pointer at the cluster_shard="0/1" escape hatch.  NFS caveat: the
+        wait polls os.path.exists, which needs close-to-open consistency —
+        with aggressive attribute caching (`actimeo`), visibility of shard
+        0's rename can be delayed by up to the cache timeout."""
         spec = (self.cfg.cluster_shard or "").strip()
         if spec:
             idx, cnt = spec.split("/")
@@ -530,25 +544,42 @@ class Pipeline:
             if not 0 <= idx < cnt:
                 raise ValueError("bad cluster_shard %r" % spec)
             return (idx, cnt) if cnt > 1 else None
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            self._shard_auto = True
+            return (dist.get_rank(), dist.get_world_size())
         return None
 
     def _await_upstream(self, timeout_s=None, poll_s=0.5):
         """Block until shard 0's upstream stages finish (cluster.txt
-        renamed into place).  Timeout via MPTPU_SHARD_WAIT_S (default 1h).
-        Emits a progress line every 30 s so a stuck worker is diagnosable
-        from its log."""
+        renamed into place).  Timeout via MPTPU_SHARD_WAIT_S (explicit-
+        shard default 1h; 120 s when the shard slot was auto-resolved from
+        torch.distributed, so a non-shared results_dir fails fast instead
+        of hanging each rank for an hour).  Emits a progress line every
+        30 s so a stuck worker is diagnosable from its log."""
+        auto = getattr(self, "_shard_auto", False)
         if timeout_s is None:
-            timeout_s = float(os.environ.get("MPTPU_SHARD_WAIT_S", "3600"))
+            timeout_s = float(os.environ.get(
+                "MPTPU_SHARD_WAIT_S", "120" if auto else "3600"))
         marker = self._p("cluster.txt")
         t0 = time.time()
         next_note = 30.0
         while not os.path.exists(marker):
             waited = time.time() - t0
             if waited > timeout_s:
+                hint = ""
+                if auto:
+                    hint = (" [shard slot auto-resolved from "
+                            "torch.distributed: results_dir must be on "
+                            "storage shared with rank 0; pass "
+                            "cluster_shard=\"0/1\" to opt out of "
+                            "auto-sharding]")
                 raise TimeoutError(
                     "cluster_shard=%s waited %.0f s for shard 0's upstream "
-                    "stages (%s missing)" % (self.cfg.cluster_shard,
-                                             timeout_s, marker))
+                    "stages (%s missing)%s" % (self.cfg.cluster_shard or
+                                               "auto", timeout_s, marker,
+                                               hint))
             if waited >= next_note:
                 print("[mptpu] shard worker waiting for upstream marker "
                       "%s (%.0f s / %.0f s)" % (marker, waited, timeout_s),
@@ -609,8 +640,10 @@ class Pipeline:
                       and not self._clusters_use_torch() else "spawn")
             ctx = multiprocessing.get_context(method)
             threads = max(1, (os.cpu_count() or 1) // workers)
-            with ctx.Pool(workers, initializer=_set_native_threads,
-                          initargs=(threads,)) as pool:
+            from ..parallel import mesh as pmesh
+            mesh = pmesh.active_mesh()
+            with ctx.Pool(workers, initializer=_init_worker,
+                          initargs=(threads, mesh and mesh.spec())) as pool:
                 # chunksize=1: default chunking hands one worker a contiguous
                 # block of the LARGEST clusters (order is size-sorted),
                 # serialising the heavy tail and defeating LPT

@@ -55,7 +55,8 @@ class ScanParams:
     product_size: tuple = (100, 1500)
     batch_seqs: int = 512       # numpy-path tile over the target axis
     device_batch_seqs: int = 2048   # device-path tile (fewer round-trips)
-    backend: str = "auto"       # auto: the device (MPTPU_FORCE_BACKEND=host
+    backend: str = "auto"       # auto: the measured host/device crossover
+                                # (_auto_backend; MPTPU_FORCE_BACKEND
                                 # overrides); numpy: native host scan;
                                 # device/conv/pallas: the device scan
     want_mism: bool = False     # per-hit mismatch counts (the F/R join
@@ -148,14 +149,40 @@ def parse_fasta(path):
 _DEVICE_BACKENDS = ("device", "conv", "pallas")
 
 
-def _resolve_backend(backend):
-    """-> "numpy" (native host scan) or "device".  The JAX package's
-    measured crossover is TPU-specific and not carried over: "auto" takes
-    the device unless MPTPU_FORCE_BACKEND=host; "conv"/"pallas" are
-    synonyms of the device path.  Outputs are identical either way."""
+def _auto_backend(target_seqs, patterns, plen, pad_len, n_pat_padded,
+                  params: ScanParams):
+    """The measured crossover of "auto" (utils/link.py, constants from an
+    H100): "numpy" when the host scan's estimate beats the device's (its
+    start-up, the corpus encode and upload unless resident, the card's
+    work), else "device".  MPTPU_FORCE_BACKEND=host|device decides
+    first."""
+    from .. import native
     from ..utils import link as linkmod
+    forced = linkmod.forced_backend()
+    if forced is not None:
+        return "numpy" if forced == "host" else "device"
+    total_bases = sum(len(s) for s in target_seqs)
+    t_host = linkmod.est_host_scan_s(total_bases, len(patterns), params.mm,
+                                     native.available())
+    startup = linkmod.device_startup_s()
+    if t_host < 1.0 + startup:  # host beats any device path that would
+        return "numpy"          # still pay its start-up first
+    n_out = pad_len - plen + 1
+    bs = ms.safe_batch_size(params.device_batch_seqs, n_out, n_pat_padded)
+    n_batches = -(-len(target_seqs) // bs)
+    upload_bytes = n_batches * bs * pad_len          # uint8 mask rows
+    t_dev = startup + linkmod.est_device_scan_s(
+        total_bases, len(patterns), plen, n_batches, upload_bytes,
+        resident=bool(params.corpus_cache))
+    return "device" if t_dev < t_host else "numpy"
+
+
+def _resolve_backend(backend, workload=None):
+    """-> "numpy" (native host scan) or "device".  "auto" is
+    _auto_backend(*workload); "conv"/"pallas" are synonyms of the device
+    path.  Outputs are identical either way."""
     if backend == "auto":
-        return "numpy" if linkmod.forced_backend() == "host" else "device"
+        return _auto_backend(*workload)
     if backend == "numpy":
         return backend
     if backend in _DEVICE_BACKENDS:
@@ -204,8 +231,20 @@ def scan_hits(target_seqs, patterns, params: ScanParams, device="cuda"):
     global_max = max((len(s) for s in target_seqs), default=0)
     pad_len = max(-global_max % 512 + global_max, 512)
     from .. import native
+    from ..parallel import mesh as pmesh
     global LAST_BACKEND
-    backend = _resolve_backend(params.backend)
+    mesh = pmesh.active_mesh()
+    backend = _resolve_backend(params.backend, (
+        target_seqs, patterns, plen, pad_len, p1h.shape[0], params))
+    # under a mesh an explicit backend (numpy included) takes the sharded
+    # path; auto only when it resolves to the device, since the mesh does
+    # not help a workload the host wins outright (the JAX package's rule)
+    if mesh is not None and (params.backend != "auto"
+                             or backend == "device"):
+        out = _scan_hits_sharded(mesh, target_seqs, p1h, s1h, n_real,
+                                 pad_len, plen, params)
+        LAST_BACKEND = "device-sharded"     # only once the scan succeeded
+        return out
     if backend == "numpy":
         LAST_BACKEND = "host"
         # native scans: identical hits (fuzzed against find_hits_numpy and
@@ -281,6 +320,8 @@ def scan_hits(target_seqs, patterns, params: ScanParams, device="cuda"):
         if worst <= max_hits:
             break
         max_hits = 1 << (2 * worst - 1).bit_length()
+    from ..utils import link as linkmod
+    linkmod.mark_device_warm()       # first-use cost paid in this process
     LAST_BACKEND = "device"          # only once the scan succeeded
     for bi in range(n_batches):
         seq, pos, pat, mm_, _ = ms.decode_packed(
@@ -290,6 +331,48 @@ def scan_hits(target_seqs, patterns, params: ScanParams, device="cuda"):
                               mm_.tolist()):
             if p < n_real:      # drop bucket-padding rows
                 hits.append((lo + s, o, p, m))
+    return hits
+
+
+def _scan_hits_sharded(mesh, target_seqs, p1h, s1h, n_real, pad_len, plen,
+                       params: ScanParams):
+    """Multi-device scan path (parallel.mesh.find_hits_sharded): targets
+    are batched to a mesh-divisible batch, each shard compacts its own
+    sparse hits on its device, and the host decodes the per-shard blocks
+    with their global row offsets.  The same hits as the single-device
+    paths, in the same order."""
+    from ..parallel import mesh as pmesh
+    n_shards = mesh.devices.size
+    n_out = pad_len - plen + 1
+    bs = ms.safe_batch_size(params.device_batch_seqs, n_out, p1h.shape[0])
+    bs = max(n_shards, bs - bs % n_shards)
+    shard_n = bs // n_shards
+    hits = []
+    max_hits = 1 << 16
+    for lo in range(0, len(target_seqs), bs):
+        chunk = target_seqs[lo:lo + bs]
+        if len(chunk) < bs:
+            chunk = chunk + [""] * (bs - len(chunk))
+        t1h, lens = ms.encode_target_masks(chunk, length=pad_len)
+        if t1h.shape[1] < plen:
+            continue
+        while True:
+            blocks = pmesh.find_hits_sharded(
+                mesh, t1h, lens, p1h, s1h, mm=params.mm,
+                term=max(params.term, 0), max_hits_per_shard=max_hits,
+                want_mism=params.want_mism)
+            worst = int(max(blk[0] for blk in blocks))
+            if worst <= max_hits:
+                break
+            max_hits = 1 << (2 * worst - 1).bit_length()
+        for si, blk in enumerate(blocks):
+            seq, pos, pat, mism, _ = ms.decode_packed(
+                blk, n_out, p1h.shape[0], max_hits)
+            base = lo + si * shard_n
+            for s, o, p, m in zip(seq.tolist(), pos.tolist(), pat.tolist(),
+                                  mism.tolist()):
+                if p < n_real:
+                    hits.append((base + s, o, p, m))
     return hits
 
 

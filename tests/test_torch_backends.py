@@ -147,16 +147,19 @@ def test_design_v2_equals_jax(tmp_path):
 @pytest.mark.parametrize("override", [
     {"design_backend": "wrc"}, {"align_backend": "progressive"},
     {"algo": "v2"}], ids=["wrc", "progressive", "v2"])
-def test_run_pipeline_backend_tree_equals_jax(tmp_path, override):
+def test_run_pipeline_backend_tree_equals_jax(tmp_path, override,
+                                              monkeypatch):
     """The three-family `run` with each alternative backend: both pipelines
     write into the same path, one after the other, and every file but the
-    timings is byte-identical."""
+    timings is byte-identical; the port's scan held to the device path
+    (MPTPU_FORCE_BACKEND), which the crossover gives to the host here."""
     fa = tmp_path / "three.fa"
     _three_families(fa)
     res = tmp_path / "res"
     kw = dict(PIPE_KW, **override)
     jdriver.run_pipeline(None, input_fa=str(fa), results_dir=str(res), **kw)
     os.rename(res, tmp_path / "res_jax")
+    monkeypatch.setenv("MPTPU_FORCE_BACKEND", "device")
     pipe, _ = tdriver.run_pipeline(None, input_fa=str(fa),
                                    results_dir=str(res), device="cpu", **kw)
     want = _tree(tmp_path / "res_jax")

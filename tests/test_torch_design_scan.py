@@ -146,7 +146,8 @@ def _synthetic_family(seed=7, n=30, length=260):
 def test_design_engine_device_equals_jax(stage_a, monkeypatch):
     """DesignEngine.design on the port's device Stage A (torch on the CPU)
     gives the rows of JAX's device and host Stage A, every WindowResult
-    field included."""
+    field included; "auto" takes the side of the measured crossover (the
+    host at this size, whose estimate is under the device's start-up)."""
     monkeypatch.delenv("MPTPU_FORCE_BACKEND", raising=False)
     ids, chars = _synthetic_family()
     params = dict(coverage=0.5, min_product=100, coordinate="2,3,-1",
@@ -158,7 +159,7 @@ def test_design_engine_device_equals_jax(stage_a, monkeypatch):
     eng = tmcdpd.DesignEngine(
         tmcdpd.DesignParams(stage_a=stage_a, device="cpu", **params))
     got = eng.design(ids, chars)
-    assert eng.stage_a_used == "device"
+    assert eng.stage_a_used == ("device" if stage_a == "device" else "host")
     assert len(host) > 0
     assert _rows(got) == _rows(host) == _rows(jdev)
 

@@ -444,3 +444,50 @@ def test_specificity_on_card_equals_cpu(cuda, tmp_path):
             outs[device] = {p.name: p.read_bytes() for p in d.iterdir()}
         assert outs["cuda"] == outs["cpu"]
         assert outs["cuda"]["s.out"].count(b"\n") > 5
+
+
+def test_find_hits_sharded_on_a_mesh_of_one_card(cuda):
+    """A 2-shard Mesh of cuda:0 (one card twice): find_hits_sharded's
+    blocks, decoded with their row offsets, equal find_hits_packed of the
+    whole batch on the card and the plain version's compaction on the CPU,
+    each shard through the hit-code kernel; the two-level compaction of
+    more hits than max_hits equals the plain one; asking make_mesh for
+    more GPUs than are present raises."""
+    from multiprime_tpu_torch.parallel import mesh as pmesh
+    rng = np.random.default_rng(61)
+    masks, lens, p1h, s1h = _inputs(rng, 24, 200, 900, 40, 18, 2,
+                                    letters="ACGTACGTACGTN")
+    plen, n_out, p = 18, masks.shape[1] - 17, p1h.shape[0]
+    mesh = pmesh.Mesh([["cuda:0", "cuda:0"]])
+    before = ms.HIT_CODES_LAUNCHES
+    blocks = pmesh.find_hits_sharded(mesh, masks, lens, p1h, s1h, mm=3,
+                                     term=2, max_hits_per_shard=8192,
+                                     want_mism=True)
+    assert ms.HIT_CODES_LAUNCHES == before + 2
+    got = []
+    for si, blk in enumerate(blocks):
+        seq, pos, pat, mism, n = ms.decode_packed(blk, n_out, p, 8192)
+        assert n <= 8192
+        got += list(zip((seq + si * 12).tolist(), pos.tolist(),
+                        pat.tolist(), mism.tolist()))
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
+    whole = ms.find_hits_packed(torch.from_numpy(masks).to(cuda),
+                                torch.from_numpy(lens).to(cuda), planes,
+                                sfx, plen=plen, mm=3, term=2, max_hits=1 << 14)
+    seq, pos, pat, mism, n_hits = ms.decode_packed(whole.cpu().numpy(),
+                                                   n_out, p, 1 << 14)
+    assert 8 < n_hits <= 1 << 14 and got == list(zip(seq.tolist(), pos.tolist(),
+                                          pat.tolist(), mism.tolist()))
+    for max_hits in (1 << 14, 7):
+        codes = ms.hit_codes(torch.from_numpy(masks).to(cuda), planes, sfx,
+                             plen=plen, mm=3, term=2)
+        dev_out = ms.find_hits_from_codes(
+            codes, torch.from_numpy(lens).to(cuda), plen=plen,
+            max_hits=max_hits)
+        cpu_out = ms.find_hits_from_codes(
+            codes.cpu(), torch.from_numpy(lens), plen=plen,
+            max_hits=max_hits)
+        for a, b in zip(dev_out, cpu_out):
+            assert torch.equal(a.cpu(), b)
+    with pytest.raises(RuntimeError, match="are present"):
+        pmesh.make_mesh(torch.cuda.device_count() + 1, device="cuda")

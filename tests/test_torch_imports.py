@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it loads neither JAX nor the JAX package,
-asks for the GPU unless told otherwise, and refuses the one path it has not
-ported yet (more than one GPU) instead of running something else."""
+asks for the GPU unless told otherwise, and runs every path of the JAX
+package, a mesh of several devices included (more GPUs than are present
+raise instead of running on fewer)."""
 
 import ast
 import json
@@ -71,6 +72,8 @@ with open(fa, "w") as f:
 from multiprime_tpu_torch.pipeline.driver import run_pipeline
 import multiprime_tpu_torch.cli.main
 import multiprime_tpu_torch.ops._cuda
+import multiprime_tpu_torch.parallel.dryrun
+import multiprime_tpu_torch.parallel.mesh
 from multiprime_tpu_torch.ops import dimer
 dimer.dimer_hit_matrix_fused(["ACGTACGTAC", "GTACGTACGT"], device="cpu")
 pipe, _ = run_pipeline(None, input_fa=fa, results_dir=os.path.join(root, "r"),
@@ -83,9 +86,12 @@ print(json.dumps({"modules": sorted(sys.modules),
 
 def test_port_run_loads_no_jax(tmp_path):
     """In a fresh interpreter, the port's whole `run` on the CPU leaves
-    neither jax nor any multiprime_tpu module in sys.modules."""
+    neither jax nor any multiprime_tpu module in sys.modules (the scan
+    held to the device path, which the crossover would give to the host
+    at this size)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
+    env["MPTPU_FORCE_BACKEND"] = "device"
     out = subprocess.run(
         [sys.executable, "-c", _SUBPROCESS, str(tmp_path)], env=env,
         cwd=str(tmp_path), capture_output=True, text=True, timeout=600)
@@ -94,6 +100,7 @@ def test_port_run_loads_no_jax(tmp_path):
     assert [m for m in got["modules"] if _forbidden(m)] == []
     assert "multiprime_tpu_torch.validate.scan" in got["modules"]
     assert "multiprime_tpu_torch.ops.dimer" in got["modules"]
+    assert "multiprime_tpu_torch.parallel.mesh" in got["modules"]
     assert got["backends"]["scan_backend"] == "device"
     assert (tmp_path / "r" / "Core_primers_set" / "BWT_coverage").is_dir()
 
@@ -212,11 +219,31 @@ def test_new_entry_points_default_to_cuda(name, tmp_path):
 
 @pytest.mark.parametrize("override", [{"devices": 2}])
 def test_unported_pipeline_options_raise(tmp_path, override):
-    ref = tmp_path / "r.fa"
-    ref.write_text(">r\n" + "ACGT" * 100 + "\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.run_pipeline(None, input_fa=str(ref), device="cpu",
-                             results_dir=str(tmp_path / "res"), **override)
+    """More than one device is ported: `devices: 2` on the CPU runs the
+    device Stage A over a 2-entry mesh and writes the tree of `devices: 1`
+    (its tree is held to JAX's devices=8 run in
+    tests/test_torch_parallel.py), and no "not ported" raise is left.
+    More GPUs than are present raise instead of shrinking the mesh."""
+    from .test_torch_pipeline import _three_families, _tree
+    fa = tmp_path / "three.fa"
+    _three_families(fa)
+    res = tmp_path / "res"
+    kw = dict(input_fa=str(fa), results_dir=str(res), device="cpu",
+              virus_name="three", coverage=0.5, min_seq_length=100,
+              product_size=(100, 400), stage_a="device")
+    tdriver.run_pipeline(None, **kw)
+    os.rename(res, tmp_path / "res_one")
+    pipe, log = tdriver.run_pipeline(None, **dict(kw, **override))
+    assert pipe._backends()["devices"] == 2
+    want = _tree(tmp_path / "res_one")
+    assert _tree(res) == want and len(want) > 10
+    n_gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="is_available|are present"):
+        tdriver.run_pipeline(None, **dict(kw, device="cuda",
+                                          devices=n_gpus + 1))
+    for path in (PORT / "pipeline" / "driver.py", PORT / "cli" / "main.py"):
+        text = path.read_text()
+        assert "not ported" not in text and "NotImplementedError" not in text
 
 
 @pytest.mark.parametrize("override", [
@@ -234,11 +261,14 @@ def test_ported_pipeline_options_run(tmp_path, override):
 
 
 def test_unported_device_backends_raise(monkeypatch):
-    """Device Stage A and the device DPs are ported: they resolve to the
-    device instead of raising NotImplementedError; the auto align policy
-    takes the device DP only for a CUDA device and a large pointer tensor;
-    and the design engine designs the v2 flow."""
+    """Device Stage A and the device DPs are ported: they resolve by the
+    measured crossover instead of raising NotImplementedError (a 100 x
+    100 cluster is the host's, as by the JAX package's formula); the auto
+    align policy takes the device DP only for a CUDA device and a large
+    pointer tensor; and the design engine designs the v2 flow."""
     monkeypatch.delenv("MPTPU_FORCE_BACKEND", raising=False)
+    assert mcdpd.resolve_stage_a(100, 100, 18) == "host"
+    monkeypatch.setenv("MPTPU_FORCE_BACKEND", "device")
     assert mcdpd.resolve_stage_a(100, 100, 18) == "device"
     monkeypatch.setenv("MPTPU_FORCE_BACKEND", "host")
     assert mcdpd.resolve_stage_a(100, 100, 18) == "host"

@@ -129,13 +129,20 @@ def test_scan_hits_retry_and_mixed_lengths():
 
 
 def test_scan_backend_policy(monkeypatch):
+    """Explicit names resolve as they say; "auto" asks the crossover
+    (host for a small scan, whose estimate is under the device's start-up)
+    and MPTPU_FORCE_BACKEND overrides it."""
     monkeypatch.delenv("MPTPU_FORCE_BACKEND", raising=False)
-    assert tscan._resolve_backend("auto") == "device"
+    small = (["ACGT" * 50] * 4, ["ACGTACGTAC"], 10, 512, 8,
+             tscan.ScanParams())
+    assert tscan._resolve_backend("auto", small) == "numpy"
     for name in ("device", "conv", "pallas"):
         assert tscan._resolve_backend(name) == "device"
     assert tscan._resolve_backend("numpy") == "numpy"
+    monkeypatch.setenv("MPTPU_FORCE_BACKEND", "device")
+    assert tscan._resolve_backend("auto", small) == "device"
     monkeypatch.setenv("MPTPU_FORCE_BACKEND", "host")
-    assert tscan._resolve_backend("auto") == "numpy"
+    assert tscan._resolve_backend("auto", small) == "numpy"
     with pytest.raises(ValueError, match="unknown scan backend"):
         tscan._resolve_backend("bowtie")
 
@@ -209,16 +216,19 @@ def _tree(root, skip=("pipeline_metrics.json",)):
             if p.is_file() and p.name not in skip}
 
 
-def test_run_pipeline_tree_equals_jax(tmp_path):
+def test_run_pipeline_tree_equals_jax(tmp_path, monkeypatch):
     """Both pipelines write to the same path, one after the other (several
     outputs embed the results path), and every file but the timings is
-    byte-identical; the port's scan went through the device path."""
+    byte-identical; the port's scan went through the device path (held
+    there by MPTPU_FORCE_BACKEND: the crossover gives this size to the
+    host)."""
     fa = tmp_path / "three.fa"
     _three_families(fa)
     res = tmp_path / "res"
     jdriver.run_pipeline(None, input_fa=str(fa), results_dir=str(res),
                          **PIPE_KW)
     os.rename(res, tmp_path / "res_jax")
+    monkeypatch.setenv("MPTPU_FORCE_BACKEND", "device")
     pipe, _ = tdriver.run_pipeline(None, input_fa=str(fa),
                                    results_dir=str(res), device="cpu",
                                    **PIPE_KW)

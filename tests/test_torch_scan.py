@@ -287,6 +287,80 @@ def test_find_hits_equals_jax(max_hits):
     assert np.array_equal(packed_w.astype(np.int64), packed_g.numpy())
 
 
+def _compaction_case(case):
+    """(masks, lengths, p1h, s1h, mm, term, max_hits) of one compaction
+    case: more hits than max_hits; zero-length padding rows between and
+    after real ones; a flat size N * O * P that is no multiple of 64;
+    blocks of 64 codes that are all hits."""
+    rng = np.random.default_rng(31)
+    if case == "full_blocks":
+        seqs = ["A" * 200, "A" * 150 + "C" * 50]
+        pats = ["A" * 18] * 7 + ["A" * 17 + "C"]
+        return (*jms.encode_target_masks(seqs), *_pad8(
+            jms.encode_primers(pats), _suffix(jms.encode_primers(pats), 0)),
+            1, 0, 1 << 12)
+    if case == "overflow":
+        seqs = ["A" * 300] * 3 + _rand_seqs(rng, 5, 100, 300)
+        pats = ["A" * 18] + ["A" * 9 + "C" + "A" * 8] + _planted(
+            rng, seqs[3:], 6, 18)
+        return (*jms.encode_target_masks(seqs), *_pad8(
+            jms.encode_primers(pats), _suffix(jms.encode_primers(pats), 2)),
+            1, 2, 100)
+    if case == "padding_rows":
+        seqs = _rand_seqs(rng, 9, 30, 260, letters="ACGTACGTN")
+        pats = _planted(rng, seqs, 13, 20)
+        masks, lens = jms.encode_target_masks(seqs, length=512)
+        for row in (2, 6, 7):
+            masks[row], lens[row] = 0, 0
+        pad = np.zeros((5, 512), np.uint8)
+        masks = np.concatenate([masks, pad])
+        lens = np.concatenate([lens, np.zeros(5, lens.dtype)])
+        return (masks, lens, *_pad8(jms.encode_primers(pats), _suffix(
+            jms.encode_primers(pats), 3)), 3, 3, 1 << 12)
+    seqs = _rand_seqs(rng, 3, 60, 101)
+    pats = _planted(rng, seqs, 5, 18)
+    masks, lens = jms.encode_target_masks(seqs, length=101)
+    p1h = jms.encode_primers(pats)
+    return masks, lens, p1h, _suffix(p1h, 1), 3, 1, 1 << 10
+
+
+@pytest.mark.parametrize("case", ["overflow", "padding_rows", "odd_size",
+                                  "full_blocks"])
+def test_find_hits_from_codes_two_level_equals_jax(case, monkeypatch):
+    """The two-level compaction gives JAX's find_hits element for element
+    (idx, n_hits, mismatches), and its nonzero runs over the block counts
+    and the max_hits x 64 candidates only, never over the flat codes."""
+    masks, lens, p1h, s1h, mm, term, max_hits = _compaction_case(case)
+    plen = p1h.shape[1]
+    want = jms.find_hits(masks, lens, p1h, s1h, mm=mm, term=term,
+                         max_hits=max_hits)
+    planes, sfx = tms.pack_patterns(p1h, s1h, device="cpu")
+    codes = tms.hit_codes(torch.from_numpy(masks), planes, sfx, plen=plen,
+                          mm=mm, term=term)
+    total = codes.numel()
+    sizes = []
+    nonzero_static = torch.nonzero_static
+
+    def spy(x, **kw):
+        sizes.append(x.numel())
+        return nonzero_static(x, **kw)
+    monkeypatch.setattr(torch, "nonzero_static", spy)
+    got = tms.find_hits_from_codes(codes, torch.from_numpy(lens), plen=plen,
+                                   max_hits=max_hits)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int64
+        assert np.array_equal(np.asarray(w).astype(np.int64), g.numpy())
+    n_hits = int(got[1])
+    assert n_hits > 0
+    assert sizes == [-(-total // 64), max_hits * 64]
+    if case == "overflow":
+        assert n_hits > max_hits and int((got[0] >= 0).sum()) == max_hits
+    elif case == "odd_size":
+        assert total % 64
+    else:
+        assert int((got[0] >= 0).sum()) == n_hits < max_hits
+
+
 def test_find_hits_batched_equals_jax():
     masks, lens, p1h, s1h = _find_inputs(4, n=24, term=1)
     b, bs = 3, 8

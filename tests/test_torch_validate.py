@@ -254,12 +254,37 @@ def test_onestep_equals_jax(tmp_path):
 
 
 @pytest.mark.parametrize("devices", ["2", "0"])
-def test_onestep_devices_other_than_one_raise(tmp_path, devices):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        tcli.main(["onestep", "-i", "x", "-r", "y", "--devices", devices,
-                   "--out1", str(tmp_path / "o1"), "-o",
-                   str(tmp_path / "o2"), "--device", "cpu"])
-    assert not os.listdir(tmp_path)
+def test_onestep_devices_other_than_one_raise(tmp_path, devices,
+                                              monkeypatch):
+    """`onestep --devices 2 --device cpu` (the scan held to the device
+    path, so that it runs sharded over the 2-entry mesh) writes the files
+    of JAX's `onestep --devices 2`; `--devices 0` is one device, as in the
+    JAX package, and writes those of its `--devices 1`."""
+    rng = np.random.default_rng(11)
+    base = "".join(rng.choice(list("ACGT"), size=400))
+    seqs = []
+    for _ in range(8):
+        s = list(base)
+        for _ in range(4):
+            s[int(rng.integers(len(s)))] = str(rng.choice(list("ACGT")))
+        seqs.append("".join(s))
+    text = "".join(">seq%d\n%s\n" % (i, s) for i, s in enumerate(seqs))
+
+    def setup(d):
+        (d / "c.tmsa").write_text(text)
+        (d / "c.tfa").write_text(text)
+    if devices == "2":
+        monkeypatch.setenv("MPTPU_FORCE_BACKEND", "device")
+    tree = _same_tree(tmp_path, setup, lambda d: [
+        "onestep", "-i", str(d / "c.tmsa"), "-r", str(d / "c.tfa"), "-s",
+        "100,300", "-f", "0.6", "--out1", str(d / "d.top.primer.out"), "-o",
+        str(d / "d.candidate.txt")],
+        jax_extra=["--devices", "2" if devices == "2" else "1"],
+        torch_extra=["--devices", devices])
+    assert b"total coverage of primer set (PS) is: 8" in \
+        tree["d.candidate_target.total.acc.num"]
+    assert tscan.LAST_BACKEND == ("device-sharded" if devices == "2"
+                                  else "host")
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +319,9 @@ def test_greedy_maximal_with_offtarget_equals_jax(tmp_path, monkeypatch):
     got_rows = [list(r) for r in rows]
     want = jmaxset.greedy_maximal_with_offtarget(
         rows, str(tmp_path / "j.xls"), str(tmp_path / "j.next"), str(bg_fa))
+    # the screen's scans held to the device path, whose corpus is cached
+    # (the crossover gives scans of this size to the host)
+    monkeypatch.setenv("MPTPU_FORCE_BACKEND", "device")
     got = tmaxset.greedy_maximal_with_offtarget(
         got_rows, str(tmp_path / "t.xls"), str(tmp_path / "t.next"),
         str(bg_fa), device="cpu")
