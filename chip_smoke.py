@@ -41,14 +41,20 @@ the final line):
    and the device Gotoh (align_backend: centerstar-device), into phase 4's
    results path: every output file byte-identical to phase 4's (but
    pipeline_metrics.json and logs), Stage A and the align DP served by the
-   card; both runs' stage seconds;
-10. the device torch ops on the largest cluster of that run, each equal
-   to its counterpart and timed: design_stats_blocks on the card vs the
-   CPU (and the cluster's design with host vs device Stage A);
+   card, the Gotoh kernel launched once for each of the run's Gotoh
+   blocks; both runs' stage seconds;
+10. the device ops on the largest cluster of that run, each equal to its
+   counterpart and timed: design_stats_blocks on the card vs the CPU (and
+   the cluster's design with host vs device Stage A);
    align_ops_batch_device vs native.gotoh_ops_batch and
    refine_pass_device vs native.refine_realign on its members with seeded
-   indels (one 512-member Gotoh block timed); CUDA launches and device
-   busy time of one block each (torch.profiler), peak device memory;
+   indels; the Gotoh and refine DP kernels (csrc/gotoh_dp.cu,
+   csrc/refine_dp.cu) against their plain versions on the card on one
+   512-member Gotoh block, one 256-row refine block and a tie-heavy grid,
+   with CUDA-event times of kernel and plain version, the trace's share
+   (the kernels' clock64 counters), the native DP's time, the bound, and
+   the launches of one block at full depth (torch.profiler), peak device
+   memory;
 11. `specificity` through the CLI against a seeded background of about
    64 Mb (15 x 4 Mb and one shorter sequence, so that the scan's last
    batch holds padding rows) holding 200 planted amplicons of phase 5's
@@ -79,7 +85,8 @@ the final line):
 16. the crossover: the constants of utils/link.py fitted on this card, and
    the side "auto" picks for phases 4, 5 and 11's scans and the 21k design
    stage beside the measured time of both sides;
-17. the kernels line.
+17. the kernels line: all five kernels; the two DP kernels carry the native
+   DP's ms a block beside their plain version's.
 
 Every phase that drives the card's path holds its scans to the device
 (MPTPU_FORCE_BACKEND=device, or an explicit backend): the crossover may
@@ -107,6 +114,22 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+# H100 SXM CUDA-core rates: 132 SMs x lanes x the 1.98 GHz boost clock; an
+# SM has 64 int32 lanes and 128 fp32 lanes, each one add, max or compare a
+# clock (the data sheet's 67 TFLOP/s counts an fp32 FMA as two)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
+# operations a DP cell that the function needs, read from the rows of the
+# JAX programs (loads, stores and loop control not counted), in int32 for
+# multiprime_tpu/align/device.py _build's row: the substitution 2 (compare,
+# select), F and fcont 4 (2 adds, max, compare), diag, vert, p, t, the
+# cummax, E, econt and V 1 each, E > vert and its select 2, the pointer
+# byte 4 (csrc/gotoh_dp.cu does 28, computing t and the running max in
+# both of its passes and packing the byte in two steps); in fp32 for
+# _build_refine's col: the open add, compare, max and add, the profile
+# term's subtract and add, the skip compare and select
+GOTOH_OPS_PER_CELL = 20
+REFINE_OPS_PER_CELL = 8
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core rate
 BF16_OPS_PER_S = 0.989e15      # H100 SXM dense bf16 tensor-core rate
 DEVICE = "cuda"
@@ -1060,11 +1083,27 @@ def phase_device_run(args, report, work, res):
         "host run | device run:")
     for stage in sorted(set(host_t) | set(dev_t)):
         say("  %-16s %10s | %s" % (stage, host_t.get(stage), dev_t.get(stage)))
+    # the Gotoh kernel's launches in the run's cluster workers, against the
+    # blocks the run's MSAs call for
+    _, _, gotoh_blocks = run_blocks(res)
+    gotoh_launches = backends.get("gotoh_dp_launches", 0)
+    say("phase 9 align stage %s s summed over workers (host run %s s); "
+        "gotoh_dp launches %d for gotoh_blocks_per_run %d; refine_dp "
+        "launches %d (refine_msa takes native)"
+        % (dev_t.get("align"), host_t.get("align"), gotoh_launches,
+           gotoh_blocks, backends.get("refine_dp_launches", 0)))
+    if gotoh_launches != gotoh_blocks:
+        fail("the device run made %d gotoh_dp launches for %d Gotoh blocks"
+             % (gotoh_launches, gotoh_blocks))
     report["device_run"] = {"wall_s": wall, "nproc": nproc,
                             "timings_s": dev_t, "stage_a_served": stage_a,
                             "align_served": align, "files": n_files,
                             "host_wall_s": report["run"]["wall_s"],
-                            "host_timings_s": host_t}
+                            "host_timings_s": host_t,
+                            "gotoh_dp_launches": gotoh_launches,
+                            "refine_dp_launches": backends.get(
+                                "refine_dp_launches", 0),
+                            "gotoh_blocks_per_run": gotoh_blocks}
     shutil.rmtree(host_res, ignore_errors=True)
 
 
@@ -1144,14 +1183,94 @@ def with_indels(rng, seq):
     return "".join(s)
 
 
-# phase 10 profiles one Gotoh block and one refine block cut to this many
-# center bases / columns (a third of the corpus's 900)
-PROFILE_DEPTH = 300
+def run_blocks(res):
+    """(cluster sizes and names, Stage-A blocks, Gotoh blocks) of the run in
+    res: ceil(W / 512) Stage-A blocks a designed cluster, ceil((rows - 1) /
+    512) Gotoh blocks a cluster of more than one row."""
+    from multiprime_tpu_torch.models import mcdpd
+    with open(os.path.join(res, "cluster.txt")) as f:
+        sizes = [(int(n), name) for name, n in
+                 (line.split("\t") for line in f.read().splitlines()[1:])]
+    eng = mcdpd.DesignEngine(mcdpd.DesignParams(
+        coverage=0.7, min_product=150, coordinate="2,3,-1"))
+    design_blocks = gotoh_blocks = 0
+    for n, name in sizes:
+        _, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
+                                                name + ".tmsa"))
+        if chars.shape[0] > 1:
+            gotoh_blocks += -(-(chars.shape[0] - 1) // 512)
+        try:
+            start, stop = eng.usable_span(chars)
+        except ValueError:
+            continue
+        design_blocks += -(-max(stop - 18 - start, 0) // 512)
+    return sizes, design_blocks, gotoh_blocks
+
+
+def same_op_codes(a, b):
+    """Forward op-code matrices equal up to their pad widths (3 past)."""
+    s = min(a.shape[1], b.shape[1])
+    return (np.array_equal(a[:, :s], b[:, :s]) and (a[:, s:] == 3).all()
+            and (b[:, s:] == 3).all())
+
+
+def dp_grid_equal(dev):
+    """The GPU tests' tie-heavy DP cases at 8 times their lengths (members
+    of more than 256 bases give a thread two columns, 33 members in blocks
+    of 32 leave a block of one): gotoh_block and refine_block on the card
+    equal to their plain versions on the card -> blocks checked."""
+    from tests import test_torch_gpu as gpu_tests
+    blocks = 0
+    for name in gpu_tests.DP_CASES:
+        c, members, block = gpu_tests.dp_case(name, scale=8)
+        try:
+            blocks += gpu_tests.dp_blocks_equal_plain(
+                dev, c, members, block, gpu_tests.dp_case_rows(c, members))
+        except AssertionError as e:
+            fail("a DP kernel differs from its plain version on the %s case "
+                 "(%s)" % (name, e))
+    return blocks
+
+
+def measure_dp(name, kernel, plain, args, m, n_bytes, ops, ops_per_s):
+    """One block of a DP kernel on the card: equal to its plain version
+    (so max_abs_err 0), CUDA-event times of both (mean after one warm-up), the
+    trace's share of the CTAs' clock64 cycles, and the bound."""
+    import torch
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        fail("%s differs from its plain version on phase 10's block" % name)
+    clocks = torch.zeros((m, 3), dtype=torch.int64, device=got.device)
+    kernel(*args, clocks=clocks)
+    torch.cuda.synchronize()
+    ck = clocks.cpu().numpy().astype(np.float64)
+    share = float((ck[:, 2] - ck[:, 1]).sum()
+                  / max((ck[:, 2] - ck[:, 0]).sum(), 1.0))
+    ms = cuda_ms(lambda: kernel(*args), 10)
+    plain_ms = cuda_ms(lambda: plain(*args), 1)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                trace_share=share, trace_ms=ms * share,
+                **bound(n_bytes, ops, ops_per_s))
+
+
+def profiled_launches(fn, kernel_name):
+    """(launches of the named kernel, CUDA activities, device busy ms, the
+    breakdown) of one fn() call from torch.profiler at full size; fails
+    where the profiler gives no device events."""
+    prof = kernel_breakdown(fn, top=50)
+    if prof is None:
+        fail("torch.profiler gave no device events for one %s block"
+             % kernel_name)
+    n = sum(v[1] for k, v in prof.items() if kernel_name in k)
+    return (n, sum(v[1] for v in prof.values()),
+            sum(v[0] for v in prof.values()), prof)
 
 
 def phase_device_ops(args, report, res):
-    """The device torch ops of Stage A and the DPs on the largest cluster of
-    the device run, each held to its counterpart and timed."""
+    """The device torch ops of Stage A and the DP kernels on the largest
+    cluster of the device run, each held to its counterpart and timed."""
     import torch
     from multiprime_tpu_torch import native
     from multiprime_tpu_torch.align import centerstar, refine
@@ -1161,24 +1280,10 @@ def phase_device_ops(args, report, res):
     from multiprime_tpu_torch.utils import iupac
     from multiprime_tpu_torch.validate import scan as vscan
     dev = torch.device(DEVICE)
-    with open(os.path.join(res, "cluster.txt")) as f:
-        sizes = [(int(n), name) for name, n in
-                 (line.split("\t") for line in f.read().splitlines()[1:])]
+    sizes, design_blocks, gotoh_blocks = run_blocks(res)
     params = mcdpd.DesignParams(coverage=0.7, min_product=150,
                                 coordinate="2,3,-1")
     eng = mcdpd.DesignEngine(params)
-    # Stage-A blocks of the whole run: ceil(W / 512) per designed cluster
-    design_blocks = gotoh_blocks = 0
-    for n, name in sizes:
-        _, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
-                                                name + ".tmsa"))
-        try:
-            start, stop = eng.usable_span(chars)
-        except ValueError:
-            continue
-        design_blocks += -(-max(stop - 18 - start, 0) // 512)
-        if chars.shape[0] > 1:
-            gotoh_blocks += -(-(chars.shape[0] - 1) // 512)
     _, name = max(sizes)
     ids, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
                                               name + ".tmsa"))
@@ -1233,7 +1338,7 @@ def phase_device_ops(args, report, res):
            cpu_ms / nb, peak, prof, walls["host"], walls["device"]))
 
     # the center-star DP: the run's members (the sampled .tfa) against
-    # native, then one block of 512 members of the whole cluster timed; the
+    # native, then one block of 512 members of the whole cluster; the
     # corpus has substitutions only, so each member gets 0-3 seeded indels
     # of 1-12 bases, which the affine states and the refine moves need
     rng = np.random.default_rng(args.seed + 4)
@@ -1243,47 +1348,75 @@ def phase_device_ops(args, report, res):
     codes = [centerstar._encode(s) for s in seqs]
     center = centerstar.pick_center(seqs)
     members = [codes[m] for m in range(len(seqs)) if m != center]
+    before = adev.GOTOH_DP_LAUNCHES
     got = adev.align_ops_batch_device(codes[center], members,
                                       as_codes=True, device=dev)
+    cluster_launches = adev.GOTOH_DP_LAUNCHES - before
     nat = native.gotoh_ops_batch(codes[center], members)
     if nat is None:
         fail("native.gotoh_ops_batch is unavailable")
-    s_min = min(got.shape[1], nat.shape[1])
-    if not (np.array_equal(got[:, :s_min], nat[:, :s_min])
-            and (got[:, s_min:] == 3).all() and (nat[:, s_min:] == 3).all()):
+    if not same_op_codes(got, nat):
         fail("align_ops_batch_device differs from native.gotoh_ops_batch on "
              "%s" % name)
+    if cluster_launches != -(-len(members) // 512):
+        fail("align_ops_batch_device made %d gotoh_dp launches for %d "
+             "members" % (cluster_launches, len(members)))
     _, all_seqs = vscan.parse_fasta(os.path.join(res, "Clusters_fa",
                                                  name + ".fa"))
     block = [centerstar._encode(with_indels(rng, s)) for s in all_seqs[:512]]
     c = codes[center]
-    _, gotoh_ms, gotoh_peak = timed(lambda: adev.align_ops_batch_device(
+    _, call_ms, gotoh_peak = timed(lambda: adev.align_ops_batch_device(
         c, block, as_codes=True, device=dev))
     t0 = time.perf_counter()
-    native.gotoh_ops_batch(c, block)
+    nat_block = native.gotoh_ops_batch(c, block)
     native_ms = (time.perf_counter() - t0) * 1e3
-    # profiled at a cut depth: torch.profiler's processing grows with the
-    # launches, one group a DP row of the center
-    prof = device_profile(lambda: adev.align_ops_batch_device(
-        c[:PROFILE_DEPTH], [b[:PROFILE_DEPTH] for b in block],
-        as_codes=True, device=dev))
-    lbs = [len(b) for b in block]
-    out["align_ops_batch_device"] = {
-        "members_checked": len(members), "la": len(c), "M": len(block),
-        "lb_max": max(lbs), "ms_per_block": gotoh_ms,
-        "native_ms_per_block": native_ms, "peak_mib": gotoh_peak,
-        "profile_one_block_cut": prof, "profile_depth": PROFILE_DEPTH}
-    say("phase 10 align_ops_batch_device: %d members == native; one block "
-        "la=%d M=%d lb_max=%d: %.1f ms on the card, native %.1f ms (%d host "
-        "threads); peak %.1f MiB; cut to %d bases: %s (launches, device "
-        "busy ms)"
-        % (len(members), len(c), len(block), max(lbs), gotoh_ms, native_ms,
-           os.cpu_count() or 1, gotoh_peak, PROFILE_DEPTH, prof))
+    if not same_op_codes(adev.align_ops_batch_device(
+            c, block, as_codes=True, device=dev), nat_block):
+        fail("align_ops_batch_device differs from native.gotoh_ops_batch on "
+             "the 512-member block")
+    c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
+    bmat, lbs = adev.gotoh_block_inputs(block, device=dev)
+    lbs_h = lbs.cpu().numpy().astype(np.int64)
+    la, lb, mb = len(c), bmat.shape[1], len(block)
+    cells = la * int((lbs_h + 1).sum())
+    gk = measure_dp(
+        "gotoh_block", adev.gotoh_block,
+        lambda c_, b_, l_: adev.gotoh_block_reference(c, b_, l_, dev),
+        (c_dev, bmat, lbs), mb,
+        cells + 4 * la + 4 * mb * lb + 4 * mb + mb * (la + int(lbs_h.max())),
+        GOTOH_OPS_PER_CELL * cells, INT32_OPS_PER_S)
+    n, acts, busy, prof = profiled_launches(
+        lambda: adev.align_ops_batch_device(c, block, as_codes=True,
+                                            device=dev), "gotoh_dp_kernel")
+    if n != 1:
+        fail("one Gotoh block made %d gotoh_dp launches" % n)
+    gk.update(native_ms=native_ms, launches_per_block=n,
+              activities_per_block=acts, busy_ms_per_block=busy,
+              profile_per_block=prof, call_ms=call_ms, peak_mib=gotoh_peak,
+              cluster_launches=cluster_launches, la=la, M=mb,
+              lb_max=int(lbs_h.max()), cells=cells)
+    out["gotoh_dp"] = gk
+    say("phase 10 align_ops_batch_device: %d members == native in %d "
+        "gotoh_dp launches; one block la=%d M=%d lb_max=%d: gotoh_block == "
+        "its plain version (max_abs_err %d); kernel %.4f ms (trace %.1f%% "
+        "of its cycles, %.4f ms), plain %.1f ms, native %.1f ms (%d host "
+        "threads), bound %.4f ms (%s, %.1f%%); the call %.1f ms, peak %.1f "
+        "MiB; torch.profiler, full depth: %s gotoh_dp launch(es) of %s CUDA "
+        "activities, %s device ms: %s"
+        % (len(members), cluster_launches, la, mb, gk["lb_max"],
+           gk["max_abs_err"], gk["ms"], 100 * gk["trace_share"],
+           gk["trace_ms"], gk["plain_ms"], native_ms, os.cpu_count() or 1,
+           gk["bound_ms"], gk["bound_by"], 100 * gk["bound_ms"] / gk["ms"],
+           call_ms, gotoh_peak, n, acts, busy, json.dumps(prof)))
 
-    # the refine DP: one pass over the cluster's center-star rows
+    # the refine DP: one pass over the cluster's center-star rows, then
+    # one block of 256 rows
     rows = centerstar._merge_rows_vec(
         seqs, center, [m for m in range(len(seqs)) if m != center], got)
-    got_rows, ref_ms, ref_peak = timed(lambda: refine.refine_pass(
+    before = adev.REFINE_DP_LAUNCHES
+    got_rows = refine.refine_pass(rows, backend="device", device=dev)
+    refine_launches = adev.REFINE_DP_LAUNCHES - before
+    _, ref_ms, ref_peak = timed(lambda: refine.refine_pass(
         rows, backend="device", device=dev))
     t0 = time.perf_counter()
     nat_rows = refine.refine_pass(rows, backend="native")
@@ -1292,25 +1425,57 @@ def phase_device_ops(args, report, res):
         fail("refine_pass_device differs from native.refine_realign on %s"
              % name)
     n_blocks = -(-len(rows) // 256)
-    prof = device_profile(lambda: refine.refine_pass(
-        [r[:PROFILE_DEPTH] for r in rows[:256]], backend="device",
-        device=dev))
-    out["refine_pass_device"] = {
-        "M": len(rows), "C": len(rows[0]), "blocks": n_blocks,
-        "ms_per_block": ref_ms / n_blocks,
-        "native_ms_per_block": ref_native_ms / n_blocks,
-        "peak_mib": ref_peak, "profile_256_rows_cut": prof,
-        "moved_rows": sum(a != b for a, b in zip(got_rows, rows))}
+    if refine_launches != n_blocks:
+        fail("refine_pass_device made %d refine_dp launches for %d blocks"
+             % (refine_launches, n_blocks))
+    res_chars, res_codes, lens, f6, occ, n_cols = refine.device_pass_inputs(
+        rows)
+    blk = adev.refine_block_inputs(res_codes, lens, f6, occ, slice(0, 256),
+                                   device=dev)
+    mr, lmax = blk[0].shape
+    rcells = n_cols * int((lens[:256].astype(np.int64) + 1).sum())
+    rk = measure_dp(
+        "refine_block", adev.refine_block,
+        lambda *a: adev.refine_block_reference(*a, dev), blk, mr,
+        rcells + 8 * mr * lmax + 8 * mr + 4 * n_cols * mr * 6
+        + 3 * 4 * n_cols * mr + 8 * mr * n_cols,
+        REFINE_OPS_PER_CELL * rcells, FP32_OPS_PER_S)
+    n, acts, busy, prof = profiled_launches(
+        lambda: refine.refine_pass(rows[:256], backend="device", device=dev),
+        "refine_dp_kernel")
+    if n != 1:
+        fail("one refine block made %d refine_dp launches" % n)
+    rk.update(native_ms=ref_native_ms / n_blocks, launches_per_block=n,
+              activities_per_block=acts, busy_ms_per_block=busy,
+              profile_per_block=prof, pass_ms_per_block=ref_ms / n_blocks,
+              peak_mib=ref_peak, pass_launches=refine_launches,
+              M=len(rows), C=n_cols, blocks=n_blocks, lmax=lmax,
+              cells=rcells,
+              moved_rows=sum(a != b for a, b in zip(got_rows, rows)))
+    out["refine_dp"] = rk
     say("phase 10 refine_pass_device: M=%d C=%d, %d blocks of 256 == native "
-        "(%d rows moved); %.1f ms a block on the card, native %.1f ms; peak "
-        "%.1f MiB; 256 rows cut to %d columns: %s (launches, device busy "
-        "ms)"
-        % (len(rows), len(rows[0]), n_blocks, out["refine_pass_device"][
-            "moved_rows"], ref_ms / n_blocks, ref_native_ms / n_blocks,
-           ref_peak, PROFILE_DEPTH, prof))
+        "(%d rows moved) in %d refine_dp launches; one block of %d rows "
+        "(lmax %d): refine_block == its plain version (max_abs_err %d); "
+        "kernel %.4f ms (trace %.1f%% of its cycles, %.4f ms), plain %.1f "
+        "ms, native %.1f ms a block; bound %.4f ms (%s, %.1f%%); the pass "
+        "%.1f ms a block, peak %.1f MiB; torch.profiler, full depth: %s "
+        "refine_dp launch(es) of %s CUDA activities, %s device ms: %s"
+        % (len(rows), n_cols, n_blocks, rk["moved_rows"], refine_launches,
+           mr, lmax, rk["max_abs_err"], rk["ms"], 100 * rk["trace_share"],
+           rk["trace_ms"], rk["plain_ms"], rk["native_ms"], rk["bound_ms"],
+           rk["bound_by"], 100 * rk["bound_ms"] / rk["ms"],
+           rk["pass_ms_per_block"], ref_peak, n, acts, busy,
+           json.dumps(prof)))
+    blocks = dp_grid_equal(dev)
+    say("phase 10 tie grid: gotoh_block and refine_block == their plain "
+        "versions on the card on %d blocks (homopolymers, tandem repeats, "
+        "members equal to the center, codes 4 and up, empty members, a "
+        "one-base center, one member, 33 members in blocks of 32)" % blocks)
     say("phase 10 blocks a run: %d Stage-A blocks, %d Gotoh blocks, 0 refine "
         "blocks (refine_msa takes native)" % (design_blocks, gotoh_blocks))
     report["device_ops"] = out
+    report["gotoh_dp"] = gk
+    report["refine_dp"] = rk
 
 
 # the specificity background: BACKGROUND_SEQS sequences of BACKGROUND_LEN
@@ -2240,6 +2405,18 @@ def kernel_entry(m, name, source, replaces):
             "matches_plain": True}
 
 
+def dp_entry(m, name, source, replaces, main_path, by_path):
+    """A DP kernel's entry of the kernels line: ``launches`` from main_path,
+    the path that runs it, ``launches_per_block`` one a block,
+    ``native_ms`` the host DP's time a block as the yardstick (no single
+    PyTorch call computes these DPs)."""
+    return dict(kernel_entry(dict(m, launches=by_path[main_path],
+                                  library_ms=None), name, source, replaces),
+                native_ms=m["native_ms"],
+                launches_per_block=m["launches_per_block"],
+                launches_by_path=by_path, trace_share=m["trace_share"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2315,7 +2492,16 @@ def main():
                      mesh["coverage"]["match_counts_launches"]}),
         kernel_entry(report["hit_window_bitmap"], "hit_window_bitmap",
                      "hit_window_bitmap.cu",
-                     "multiprime_tpu/ops/mismatch_scan.py:315")]}
+                     "multiprime_tpu/ops/mismatch_scan.py:315"),
+        dp_entry(report["gotoh_dp"], "gotoh_dp", "gotoh_dp.cu",
+                 "multiprime_tpu/align/device.py:38", "run",
+                 {"run": report["device_run"]["gotoh_dp_launches"],
+                  "cluster": report["gotoh_dp"]["cluster_launches"]}),
+        dp_entry(report["refine_dp"], "refine_dp", "refine_dp.cu",
+                 "multiprime_tpu/align/device.py:122", "refine_pass_device",
+                 {"run": report["device_run"]["refine_dp_launches"],
+                  "refine_pass_device": report["refine_dp"][
+                      "pass_launches"]})]}
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
     if args.report:

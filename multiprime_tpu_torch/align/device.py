@@ -1,24 +1,31 @@
 """Device-side batched Gotoh alignment for the center-star MSA, and the
 profile-realignment DP of ``refine``.
 
-PyTorch port of multiprime_tpu/align/device.py: torch ops on an explicit
-device (the JAX module is XLA code, ``lax.scan`` and ``lax.cummax``, with
-no Pallas kernel).  The pointer tensors stay on the device and the
-back-traces run there too, so only the op codes (``[M, la+lb] uint8``) or
-the placed columns cross to the host.  Results equal the NumPy and native
-DPs: same scores, same tie-breaking.
+PyTorch port of multiprime_tpu/align/device.py, whose two device programs
+(``_build``, the Gotoh row DP, and ``_build_refine``, the refine column
+DP, each a ``lax.scan`` with its trace, jitted into one XLA program a
+block of members) become two hand-written CUDA kernels, one launch a
+block.  The pointer tensors stay on the device and the back-traces run
+there too, so only the op codes (``[M, la+lb] uint8``) or the placed
+columns cross to the host.  Results equal the NumPy and native DPs: same
+scores, same tie-breaking.
 
-* ``align_ops_batch_device``: the DP is a Python loop over center rows,
-  each step ~25 vector ops on ``[M, lb+1]`` int32 lanes; the within-row
-  affine-E dependency folds into ``torch.cummax`` like the NumPy prefix
-  max.  The trace is a loop of the same kind.
-* ``refine_pass_device``: a loop over MSA columns on ``[M, lmax+1]``
-  float32 lanes.  The profile lookup is a ``torch.gather`` (exact) and the
-  host pre-scales every multiply, so each device step is one IEEE add,
-  max or compare and the card rounds as NumPy does.
+* ``align_ops_batch_device`` runs ``gotoh_block`` a member block:
+  ``csrc/gotoh_dp.cu`` for CUDA tensors; for CPU tensors its plain version
+  ``gotoh_block_reference``, a Python loop over center rows of ~25 vector
+  ops on ``[M, lb+1]`` int32 lanes, the within-row affine-E dependency
+  folded into ``torch.cummax`` like the NumPy prefix max, and a trace loop
+  of the same kind.
+* ``refine_pass_device`` runs ``refine_block`` a member block:
+  ``csrc/refine_dp.cu`` for CUDA tensors; for CPU tensors its plain version
+  ``refine_block_reference``, a loop over MSA columns on ``[M, lmax+1]``
+  float32 lanes with the profile lookup as a ``torch.gather`` (exact).
+  The host pre-scales every multiply, so each device step (kernel and
+  plain version alike) is one IEEE add, max or compare and the card
+  rounds as NumPy does.
 
 The JAX module padded rows, columns and members to buckets so that XLA
-compiled few executables; eager torch loops over the true sizes.  Only the
+compiled few executables; here a block runs at its true sizes.  Only the
 width of the ``as_codes`` matrix keeps the JAX buckets (rows and columns
 to multiples of 256), so the matrices are equal in shape too.
 """
@@ -28,8 +35,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.mismatch_scan import _check_inputs, _launch
 from ..utils import link as linkmod
 from .centerstar import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
+
+# launches of each CUDA kernel in this process (never of its plain
+# version): a run reads them to show that its path went through the kernels
+GOTOH_DP_LAUNCHES = 0
+REFINE_DP_LAUNCHES = 0
 
 _NEG = -1 << 28
 _NEGF = float(np.float32(-1e30))
@@ -37,11 +50,46 @@ _PAD_OP = 3
 _OP_CHARS = np.array(["M", "D", "I", ""], dtype=object)
 
 
+# threads of a kernel's CTA (one CTA a member), and the bytes of a
+# member's row state (V, F or G, pointer bits, codes) kept in shared memory:
+# past it the state moves to a global scratch
+_DP_THREADS = 256
+_DP_SMEM_BYTES = 160 * 1024
+
+
 def _round_up(x, mult):
     return ((int(x) + mult - 1) // mult) * mult
 
 
-def _gotoh_block(c, bmat, lbs, dev):
+def _row_state(m, width, slot_bytes, dev):
+    """(global scratch or None, bytes a member) for the row state of a DP
+    kernel: ``slot_bytes`` a cell of ``width`` cells, rounded up to whole
+    thread slots; None (shared memory) while it fits ``_DP_SMEM_BYTES``."""
+    need = slot_bytes * _round_up(width, _DP_THREADS)
+    if need <= _DP_SMEM_BYTES:
+        return None, 0
+    region = _round_up(need, 16)
+    return torch.empty(m * region, dtype=torch.uint8, device=dev), region
+
+
+def _ptr_or_null(t):
+    return None if t is None else t.data_ptr()
+
+
+def _ranges(*tensors):
+    """[min, max, min, max, ...] of non-empty integer tensors, one sync."""
+    return torch.stack([v for t in tensors for v in torch.aminmax(t)]).tolist()
+
+
+def _check_clocks(fn, clocks, m, dev):
+    if clocks is not None:
+        _check_inputs(fn, dev, (("clocks", clocks, torch.int64, 2),))
+        if tuple(clocks.shape) != (m, 3):
+            raise ValueError("%s: clocks must be [%d, 3], got %s"
+                             % (fn, m, tuple(clocks.shape)))
+
+
+def gotoh_block_reference(c, bmat, lbs, dev):
     """Row DP + back-trace of one member block on ``dev``.
 
     c: int codes [la] of the center (host); bmat int32 [M, lb] member codes
@@ -117,6 +165,67 @@ def _gotoh_block(c, bmat, lbs, dev):
     return ops.T
 
 
+def gotoh_block(c, bmat, lbs, *, clocks=None):
+    """Row DP + back-trace of one member block: int32 center codes ``c``
+    [la], member codes ``bmat`` int32 [M, lb] (4 past each end) and their
+    lengths ``lbs`` int32 [M] -> uint8 ops [M, la + max(lbs)] in reverse
+    order, ``_PAD_OP`` once a member's trace is done.
+
+    CUDA tensors launch the CUDA kernel ``csrc/gotoh_dp.cu`` (or raise):
+    one CTA a member runs every row and the trace, one launch a block.
+    ``clocks`` (int64 [M, 3], optional) receives each CTA's clock64 at its
+    start and before and after its trace.  CPU tensors take the plain
+    version."""
+    global GOTOH_DP_LAUNCHES
+    dev = bmat.device
+    if dev.type == "cpu":
+        return gotoh_block_reference(np.asarray(c), bmat, lbs, dev)
+    _check_inputs("gotoh_block", dev, (("c", c, torch.int32, 1),
+                                       ("bmat", bmat, torch.int32, 2),
+                                       ("lbs", lbs, torch.int32, 1)))
+    m, lb = bmat.shape
+    if lbs.shape[0] != m:
+        raise ValueError("gotoh_block: lbs must be [%d], got %s"
+                         % (m, tuple(lbs.shape)))
+    _check_clocks("gotoh_block", clocks, m, dev)
+    from ..ops import _cuda
+    lib = _cuda.load("gotoh_dp")
+    if dev.type != "cuda":
+        raise ValueError("gotoh_block: unsupported device %s" % dev)
+    la = c.shape[0]
+    lo, hi = _ranges(lbs) if m else (0, 0)
+    if lo < 0 or hi > lb:
+        raise ValueError("gotoh_block: lbs must lie in 0..%d, got %d..%d"
+                         % (lb, lo, hi))
+    steps = la + hi
+    ops = torch.empty((m, steps), dtype=torch.uint8, device=dev)
+    if ops.numel() == 0:
+        return ops
+    ptr = torch.empty(m * la * (lb + 1), dtype=torch.uint8, device=dev)
+    state, region = _row_state(m, lb + 1, 10, dev)
+    with torch.cuda.device(dev):
+        _launch(lib, "gotoh_dp", c.data_ptr(), la, bmat.data_ptr(),
+                lbs.data_ptr(), m, lb, ptr.data_ptr(), ops.data_ptr(), steps,
+                _ptr_or_null(state), region, _DP_THREADS,
+                _ptr_or_null(clocks),
+                torch.cuda.current_stream(dev).cuda_stream)
+    GOTOH_DP_LAUNCHES += 1
+    return ops
+
+
+def gotoh_block_inputs(members, *, device):
+    """Member code arrays of one block -> (bmat int32 [M, lb], lbs int32
+    [M]) on ``device``: lb = max(lbs) (at least 1), code 4 past each
+    member's end."""
+    lbs = np.array([len(b) for b in members], np.int32)
+    bmat = np.full((len(members), max(int(lbs.max()) if len(lbs) else 1, 1)),
+                   4, np.int32)
+    for k, b in enumerate(members):
+        bmat[k, :len(b)] = np.asarray(b, np.int32)
+    return (torch.from_numpy(bmat).to(device),
+            torch.from_numpy(lbs).to(device))
+
+
 def align_ops_batch_device(c, member_codes, member_block=512,
                            as_codes=False, *, device="cuda"):
     """Device equivalent of ``centerstar.align_ops_batch``.
@@ -130,20 +239,15 @@ def align_ops_batch_device(c, member_codes, member_block=512,
     dev = linkmod.resolve_device(device)
     c = np.asarray(c, np.int64)
     la = len(c)
-    lbs_all = np.array([len(b) for b in member_codes], np.int32)
     out = [None] * len(member_codes)
     parts = []
     la_pad = _round_up(max(la, 1), 256)
+    c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
     for lo in range(0, len(member_codes), member_block):
         part = member_codes[lo:lo + member_block]
-        lbs = lbs_all[lo:lo + member_block]
-        lb = max(int(lbs.max()) if len(lbs) else 1, 1)
-        bmat = np.full((len(part), lb), 4, np.int32)
-        for k, b in enumerate(part):
-            bmat[k, :len(b)] = np.asarray(b, np.int32)
-        ops_rev = _gotoh_block(c, torch.from_numpy(bmat).to(dev),
-                               torch.from_numpy(lbs).to(dev), dev)
-        ops_rev = ops_rev.cpu().numpy()
+        bmat, lbs_dev = gotoh_block_inputs(part, device=dev)
+        lb = bmat.shape[1]
+        ops_rev = gotoh_block(c_dev, bmat, lbs_dev).cpu().numpy()
         if as_codes:
             # reverse + left-shift out the pad prefix, all in NumPy; the
             # width is the JAX trace's, la_pad + lb_pad
@@ -172,7 +276,7 @@ def align_ops_batch_device(c, member_codes, member_block=512,
     return out
 
 
-def _refine_block(res_codes, lens, s4, go_c, ge_c, occ2, dev):
+def refine_block_reference(res_codes, lens, s4, go_c, ge_c, occ2, dev):
     """Column DP + trace of one member block on ``dev``.
 
     res_codes int64 [M, lmax] (codes 0..5), lens int64 [M]; s4 [C, M, 6]
@@ -226,6 +330,77 @@ def _refine_block(res_codes, lens, s4, go_c, ge_c, occ2, dev):
     return cols.T
 
 
+def refine_block(res_codes, lens, s4, go_c, ge_c, occ2, *, clocks=None):
+    """Column DP + trace of one member block: residue codes ``res_codes``
+    int64 [M, lmax] (0..5), ``lens`` int64 [M]; ``s4`` float32 [C, M, 6],
+    ``go_c``/``ge_c``/``occ2`` float32 [C, M] (host-scaled, see
+    ``refine_block_reference``) -> int64 [M, C] placed columns (-1 = no
+    placement), last residue first.
+
+    CUDA tensors launch the CUDA kernel ``csrc/refine_dp.cu`` (or raise):
+    one CTA a member runs every column and the trace, one launch a block.
+    ``clocks`` (int64 [M, 3], optional) receives each CTA's clock64 at its
+    start and before and after its trace.  CPU tensors take the plain
+    version."""
+    global REFINE_DP_LAUNCHES
+    dev = res_codes.device
+    if dev.type == "cpu":
+        return refine_block_reference(res_codes, lens, s4, go_c, ge_c, occ2,
+                                      dev)
+    _check_inputs("refine_block", dev, (
+        ("res_codes", res_codes, torch.int64, 2),
+        ("lens", lens, torch.int64, 1), ("s4", s4, torch.float32, 3),
+        ("go_c", go_c, torch.float32, 2), ("ge_c", ge_c, torch.float32, 2),
+        ("occ2", occ2, torch.float32, 2)))
+    m, lmax = res_codes.shape
+    c = go_c.shape[0]
+    for name, t, shape in (("lens", lens, (m,)), ("s4", s4, (c, m, 6)),
+                           ("go_c", go_c, (c, m)), ("ge_c", ge_c, (c, m)),
+                           ("occ2", occ2, (c, m))):
+        if tuple(t.shape) != shape:
+            raise ValueError("refine_block: %s must be %s, got %s"
+                             % (name, list(shape), tuple(t.shape)))
+    _check_clocks("refine_block", clocks, m, dev)
+    from ..ops import _cuda
+    lib = _cuda.load("refine_dp")
+    if dev.type != "cuda":
+        raise ValueError("refine_block: unsupported device %s" % dev)
+    cols = torch.empty((m, c), dtype=torch.int64, device=dev)
+    if cols.numel() == 0:
+        return cols
+    # the ranges the kernel indexes by
+    stats = _ranges(lens, res_codes) if lmax else _ranges(lens) + [0, 0]
+    if stats[0] < 0 or stats[1] > lmax or stats[2] < 0 or stats[3] > 5:
+        raise ValueError("refine_block: lens must lie in 0..%d and codes in "
+                         "0..5, got %d..%d and %d..%d" % (lmax, *stats))
+    ptr = torch.empty(m * c * (lmax + 1), dtype=torch.uint8, device=dev)
+    state, region = _row_state(m, lmax + 1, 9, dev)
+    with torch.cuda.device(dev):
+        _launch(lib, "refine_dp", res_codes.data_ptr(), lens.data_ptr(), m,
+                lmax, s4.data_ptr(), go_c.data_ptr(), ge_c.data_ptr(),
+                occ2.data_ptr(), c, ptr.data_ptr(), cols.data_ptr(),
+                _ptr_or_null(state), region, _DP_THREADS,
+                _ptr_or_null(clocks),
+                torch.cuda.current_stream(dev).cuda_stream)
+    REFINE_DP_LAUNCHES += 1
+    return cols
+
+
+def refine_block_inputs(res_codes, lens, f6, occ, sel, go=-4.0, ge=-1.0,
+                        *, device):
+    """The arguments of ``refine_block`` for the members ``sel`` of a pass
+    (``refine_pass_device``'s inputs), on ``device``: every multiply
+    pre-scaled and rounded to float32 on the host."""
+    s4 = (4.0 * f6[sel]).astype(np.float32).transpose(1, 0, 2)
+    occ_t = occ[sel].astype(np.float32).T
+    go_c = (np.float32(go) * occ_t).astype(np.float32)
+    ge_c = (np.float32(ge) * occ_t).astype(np.float32)
+    occ2 = (np.float32(2.0) * occ_t).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (res_codes[sel].astype(np.int64),
+                      lens[sel].astype(np.int64), s4, go_c, ge_c, occ2)]
+
+
 def refine_pass_device(res_chars, res_codes, lens, f6, occ, c,
                        go=-4.0, ge=-1.0, member_block=256, *, device="cuda"):
     """Device twin of refine._realign_chunk: returns new row byte-strings.
@@ -241,15 +416,9 @@ def refine_pass_device(res_chars, res_codes, lens, f6, occ, c,
     for lo in range(0, m, member_block):
         sel = slice(lo, min(lo + member_block, m))
         mc = sel.stop - sel.start
-        s4 = (4.0 * f6[sel]).astype(np.float32).transpose(1, 0, 2)
-        occ_t = occ[sel].astype(np.float32).T
-        go_c = (np.float32(go) * occ_t).astype(np.float32)
-        ge_c = (np.float32(ge) * occ_t).astype(np.float32)
-        occ2 = (np.float32(2.0) * occ_t).astype(np.float32)
-        blk = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-               for x in (res_codes[sel].astype(np.int64),
-                         lens[sel].astype(np.int64), s4, go_c, ge_c, occ2)]
-        cols = _refine_block(*blk, dev).cpu().numpy()
+        blk = refine_block_inputs(res_codes, lens, f6, occ, sel, go, ge,
+                                  device=dev)
+        cols = refine_block(*blk).cpu().numpy()
         # Vectorised placement: the trace emits residues last-to-first, so
         # the r-th placed column of member k carries chars[lens[k]-1-r].
         chars_mat = np.zeros((mc, lmax if lmax else 1), np.uint8)

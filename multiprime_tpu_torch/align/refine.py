@@ -207,6 +207,19 @@ def _refine_pass_device(rows, codes, int_counts, device="cuda"):
     f32 rounding to the NumPy chunk DP (all multiplies pre-scaled on host)."""
     from .device import refine_pass_device
 
+    out = refine_pass_device(*device_pass_inputs(rows, codes, int_counts),
+                             go=GAP_OPEN, ge=GAP_EXT, device=device)
+    return [r.decode("ascii") for r in out]
+
+
+def device_pass_inputs(rows, codes=None, int_counts=None):
+    """The inputs of one device pass over ``rows`` (as
+    align/device.refine_pass_device takes them): (residue byte-strings,
+    residue codes int32 [M, lmax], lens int32 [M], self-excluded profile
+    f6 [M, C, 6] and occupancy [M, C] float32, C)."""
+    if codes is None:
+        codes = encode_rows(rows)
+        int_counts = _column_counts(codes)
     m, c = codes.shape
     counts = int_counts.astype(np.float32)
     denom = max(m - 1, 1)
@@ -230,10 +243,8 @@ def _refine_pass_device(rows, codes, int_counts, device="cuda"):
     f6 = cnt_ex / denom
     f6[:, :, 4:] = 0.0
     occ = 1.0 - cnt_ex[:, :, 4] / denom
-    out = refine_pass_device(res_chars, res_codes.astype(np.int32),
-                             lens.astype(np.int32), f6, occ, c,
-                             go=GAP_OPEN, ge=GAP_EXT, device=device)
-    return [r.decode("ascii") for r in out]
+    return (res_chars, res_codes.astype(np.int32), lens.astype(np.int32), f6,
+            occ, c)
 
 
 def drop_gap_columns(rows):

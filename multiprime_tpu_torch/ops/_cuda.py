@@ -114,6 +114,14 @@ _BINDERS = {
     "hit_window_bitmap": _binder(_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64,
                                  _INT, _INT, _INT, _PTR),
     "match_counts": _binder(_PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR),
+    # c, la, bmat, lbs, M, lb, pointers, ops, steps, row scratch, region
+    # bytes, threads, clocks, stream
+    "gotoh_dp": _binder(_PTR, _I64, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I64,
+                        _PTR, _I64, _INT, _PTR, _PTR),
+    # res_codes, lens, M, lmax, s4, go_c, ge_c, occ2, C, pointers, cols,
+    # row scratch, region bytes, threads, clocks, stream
+    "refine_dp": _binder(_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR, _PTR,
+                         _I64, _PTR, _PTR, _PTR, _I64, _INT, _PTR, _PTR),
 }
 
 

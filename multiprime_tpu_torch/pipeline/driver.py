@@ -215,6 +215,13 @@ class PipelineConfig:
         return cfg
 
 
+def _dp_launches():
+    """{kernel: launches} of the device DP kernels in this process so far."""
+    from ..align import device as adev
+    return {"gotoh_dp": adev.GOTOH_DP_LAUNCHES,
+            "refine_dp": adev.REFINE_DP_LAUNCHES}
+
+
 class Pipeline:
     def __init__(self, cfg: PipelineConfig):
         from ..utils import link as linkmod
@@ -223,6 +230,9 @@ class Pipeline:
         # clusters served by each Stage-A and align backend: {"stage_a":
         # {"device": n, ...}, "align": {"native": n, "none": n, ...}}
         self.served = {}
+        # launches of the device DP kernels in the cluster stages, summed
+        # over the workers
+        self.dp_launches = {"gotoh_dp": 0, "refine_dp": 0}
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
                                         cfg.virus_name + ".fa")
@@ -387,7 +397,7 @@ class Pipeline:
     def _backends(self):
         """Which engines actually served this run: the torch device, the
         clusters each Stage-A and align backend served, the scan backend
-        and the hit-code kernel's launch count."""
+        and the launch counts of the hit-code and DP kernels."""
         from .. import native
         from ..ops import mismatch_scan as ms
         from ..utils import link as linkmod
@@ -405,6 +415,8 @@ class Pipeline:
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
         info["hit_codes_launches"] = ms.HIT_CODES_LAUNCHES
+        info["gotoh_dp_launches"] = self.dp_launches["gotoh_dp"]
+        info["refine_dp_launches"] = self.dp_launches["refine_dp"]
         return info
 
     def _seq_format(self, out):
@@ -659,6 +671,8 @@ class Pipeline:
             for key, served in rep["served"].items():
                 count = self.served.setdefault(key, {})
                 count[served] = count.get(served, 0) + 1
+            for key, n in rep["dp_launches"].items():
+                self.dp_launches[key] += n
             self.log.extend(rep["log"])
 
     def _clusters_use_torch(self):
@@ -679,6 +693,7 @@ class Pipeline:
         cfg = self.cfg
         rep = {"align_s": 0.0, "design_s": 0.0, "pair_s": 0.0, "log": [],
                "served": {}}
+        launched = _dp_launches()
         tfa = self._p("Clusters_fa", name + ".tfa")
         msa_path = self._p("Clusters_msa", name + ".tmsa")
         if not os.path.exists(msa_path):
@@ -705,6 +720,8 @@ class Pipeline:
                 rows = refine.refine_msa(rows, cfg.msa_refine)
             centerstar.write_msa(ids, rows, msa_path)
             rep["align_s"] += time.time() - t0
+        rep["dp_launches"] = {k: n - launched[k]
+                              for k, n in _dp_launches().items()}
         if cfg.design_backend == "wrc":
             self._wrc_cluster(name, msa_path, tfa)
             return rep

@@ -1,11 +1,15 @@
 """The port's device DPs (multiprime_tpu_torch/align/device.py) against the
 JAX package's and the host DPs, on the CPU: equal op strings, equal
-``as_codes`` matrices, equal MSAs and refined rows."""
+``as_codes`` matrices, equal MSAs and refined rows.  On the CPU the
+wrappers gotoh_block and refine_block run their plain versions; their CUDA
+kernels are held to those on the card by tests/test_torch_gpu.py."""
 
 import numpy as np
 import pytest
+import torch
 
 from multiprime_tpu.align import centerstar as jcs
+from multiprime_tpu.align import device as jdev
 from multiprime_tpu.align import refine as jrefine
 from multiprime_tpu.align.device import align_ops_batch_device as jalign
 from multiprime_tpu_torch import native as tnative
@@ -14,6 +18,7 @@ from multiprime_tpu_torch.align import device as tdev
 from multiprime_tpu_torch.align import refine as trefine
 
 from .test_align_device import _rand_members
+from .test_torch_gpu import DP_CASES, dp_case, dp_case_rows
 
 
 def _random_case():
@@ -148,3 +153,69 @@ def test_refine_pass_device_blocks_and_ragged_rows():
     _, rows = tcs.center_star_msa(ids, seqs, backend="native", device="cpu")
     want = jrefine.refine_pass(rows, backend="numpy")
     assert trefine.refine_pass(rows, backend="device", device="cpu") == want
+
+
+@pytest.mark.parametrize("case", DP_CASES)
+def test_tie_heavy_dps_equal_jax(case):
+    """The plain versions behind gotoh_block and refine_block, through
+    align_ops_batch_device and refine_pass_device, against JAX's device
+    programs on the tie-heavy cases of the GPU tests: equal op strings and
+    as_codes matrices (and equal to the NumPy row loop), equal refined rows
+    (and equal to the NumPy and native passes), member blocks included."""
+    c, members, block = dp_case(case)
+    want = jcs.align_ops_batch(c, members)
+    assert jalign(c, members, member_block=block) == want
+    got = tdev.align_ops_batch_device(c, members, member_block=block,
+                                      device="cpu")
+    assert got == want
+    jcodes = jalign(c, members, member_block=block, as_codes=True)
+    tcodes = tdev.align_ops_batch_device(c, members, member_block=block,
+                                         as_codes=True, device="cpu")
+    assert tcodes.shape == jcodes.shape and np.array_equal(tcodes, jcodes)
+    rows = dp_case_rows(c, members)
+    args = trefine.device_pass_inputs(rows)
+    want_rows = jdev.refine_pass_device(*args, go=-4.0, ge=-1.0,
+                                        member_block=block)
+    got_rows = tdev.refine_pass_device(*args, go=-4.0, ge=-1.0,
+                                       member_block=block, device="cpu")
+    assert got_rows == want_rows
+    want_pass = jrefine.refine_pass(rows, backend="device")
+    assert trefine.refine_pass(rows, backend="device", device="cpu") \
+        == want_pass == trefine.refine_pass(rows, backend="numpy")
+    if case == "empty_member":
+        assert (args[2] == 0).sum() == 2      # two all-gap rows
+
+
+def test_dp_wrappers_launch_or_raise_off_the_cpu(monkeypatch):
+    """On a meta tensor (any non-CPU device) gotoh_block and refine_block
+    reach _cuda.load, and never the plain version: without a card there is
+    no fallback."""
+    from multiprime_tpu_torch.ops import _cuda
+
+    class Sentinel(Exception):
+        pass
+
+    loaded = []
+
+    def load(name):
+        loaded.append(name)
+        raise Sentinel(name)
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(_cuda, "load", load)
+    monkeypatch.setattr(tdev, "gotoh_block_reference", plain)
+    monkeypatch.setattr(tdev, "refine_block_reference", plain)
+    meta = torch.device("meta")
+    with pytest.raises(Sentinel):
+        tdev.gotoh_block(torch.zeros(7, dtype=torch.int32, device=meta),
+                         torch.zeros((3, 9), dtype=torch.int32, device=meta),
+                         torch.zeros(3, dtype=torch.int32, device=meta))
+    f = torch.zeros((5, 3), dtype=torch.float32, device=meta)
+    with pytest.raises(Sentinel):
+        tdev.refine_block(torch.zeros((3, 4), dtype=torch.int64, device=meta),
+                          torch.zeros(3, dtype=torch.int64, device=meta),
+                          torch.zeros((5, 3, 6), dtype=torch.float32,
+                                      device=meta), f, f, f)
+    assert loaded == ["gotoh_dp", "refine_dp"]

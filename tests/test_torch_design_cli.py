@@ -103,3 +103,5 @@ def test_run_pipeline_device_stages_equal_jax_host(tmp_path, nproc):
     assert n_clusters >= 2
     assert backends["stage_a_served"] == {"device": n_clusters}
     assert backends["align_served"] == {"device": n_clusters}
+    # the plain versions served on the CPU: no DP kernel launched
+    assert backends["gotoh_dp_launches"] == backends["refine_dp_launches"] == 0

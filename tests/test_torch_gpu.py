@@ -346,6 +346,175 @@ def test_refine_pass_device_card_equals_cpu(cuda):
     assert got == want and got != rows
 
 
+def _dp_codes(rng, n, hi=4):
+    return rng.integers(0, hi, size=n).astype(np.int8)
+
+
+def dp_case(name, scale=1):
+    """A tie-heavy input of the two DPs -> (center codes int8, member code
+    arrays, member block), its lengths ``scale`` times the base ones.
+    Homopolymers, tandem repeats and members equal to the center tie many
+    cells; codes of 4 and more never match; an empty member (an all-gap row
+    of the MSA), a one-base center and a single member are the edges;
+    member_block + 1 members split into two blocks."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    rnd = lambda n, hi=4: _dp_codes(rng, n, hi)  # noqa: E731
+    unit = np.array([0, 1, 2], np.int8)
+    s = scale
+    if name == "homopolymer":
+        c = np.zeros(40 * s, np.int8)
+        return c, [np.zeros(n, np.int8)
+                   for n in (0, 1, 17 * s, 40 * s, 40 * s + 1, 63 * s)] + [
+            np.insert(c, 20 * s, [1, 1, 1]), np.full(30 * s, 3, np.int8)], 512
+    if name == "tandem_repeat":
+        c = np.tile(unit, 15 * s)
+        return c, [np.tile(unit, k) for k in (3 * s, 15 * s - 1, 15 * s,
+                                              15 * s + 1, 22 * s)] + [
+            np.tile(unit[:2], 20 * s), np.roll(c, 1),
+            np.tile([0, 1, 2, 2], 11 * s).astype(np.int8)], 512
+    if name == "equal_to_center":
+        c = rnd(60 * s)
+        one = c.copy()
+        one[30 * s] = (one[30 * s] + 1) % 4
+        return c, [c.copy(), c.copy(), c[:-1].copy(), c[1:].copy(), one], 512
+    if name == "codes_4_and_up":
+        c = rnd(50 * s, 7)
+        return c, [rnd(n, 7) for n in (10 * s, 50 * s - 1, 50 * s, 70 * s)] \
+            + [c.copy()], 512
+    if name == "empty_member":
+        c = rnd(30 * s)
+        return c, [np.empty(0, np.int8), rnd(5 * s), np.empty(0, np.int8),
+                   c.copy()], 512
+    if name == "center_of_one":
+        return np.array([2], np.int8), [np.array([2], np.int8),
+                                        np.array([1], np.int8), rnd(7 * s),
+                                        np.empty(0, np.int8)], 512
+    if name == "one_member":
+        return rnd(35 * s), [rnd(40 * s)], 512
+    if name == "block_plus_one":
+        c = rnd(45 * s)
+        members = []
+        for _ in range(4 * s + 1):
+            b = c.copy()
+            b[rng.random(len(c)) < 0.1] = 0
+            members.append(np.delete(b, rng.integers(0, len(c), size=3)))
+        return c, members, 4 * s
+    raise KeyError(name)
+
+
+DP_CASES = ("homopolymer", "tandem_repeat", "equal_to_center",
+            "codes_4_and_up", "empty_member", "center_of_one", "one_member",
+            "block_plus_one")
+
+
+def dp_case_rows(c, members):
+    """The host center-star MSA of a DP case's sequences (center first,
+    codes of 4 and up as N): the rows a refine pass takes."""
+    from multiprime_tpu_torch.align import centerstar
+    seqs = ["".join("ACGTN"[min(int(x), 4)] for x in s) for s in [c, *members]]
+    _, rows = centerstar.center_star_msa(
+        [str(i) for i in range(len(seqs))], seqs, backend="numpy",
+        device="cpu")
+    return rows
+
+
+def dp_blocks_equal_plain(dev, c, members, block, rows):
+    """Each Gotoh and refine block of a case: the kernel on ``dev`` equals
+    its plain version on ``dev``, one launch a block -> blocks checked."""
+    from multiprime_tpu_torch.align import device as adev
+    from multiprime_tpu_torch.align import refine
+    c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
+    for lo in range(0, len(members), block):
+        bmat, lbs = adev.gotoh_block_inputs(members[lo:lo + block], device=dev)
+        before = adev.GOTOH_DP_LAUNCHES
+        got = adev.gotoh_block(c_dev, bmat, lbs)
+        assert adev.GOTOH_DP_LAUNCHES == before + 1
+        want = adev.gotoh_block_reference(c, bmat, lbs, dev)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), \
+            "gotoh block at %d" % lo
+    res_chars, res_codes, lens, f6, occ, _ = refine.device_pass_inputs(rows)
+    for lo in range(0, len(rows), block):
+        blk = adev.refine_block_inputs(res_codes, lens, f6, occ,
+                                       slice(lo, lo + block), device=dev)
+        before = adev.REFINE_DP_LAUNCHES
+        got = adev.refine_block(*blk)
+        assert adev.REFINE_DP_LAUNCHES == before + 1
+        want = adev.refine_block_reference(*blk, dev)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), \
+            "refine block at %d" % lo
+    return -(-len(members) // block) - (-len(rows) // block)
+
+
+@pytest.mark.parametrize("case", DP_CASES)
+def test_dp_kernels_equal_plain_on_tie_grid(cuda, case):
+    """csrc/gotoh_dp.cu and csrc/refine_dp.cu against their plain versions
+    on the card, element for element, on the tie-heavy cases."""
+    c, members, block = dp_case(case)
+    dp_blocks_equal_plain(cuda, c, members, block, dp_case_rows(c, members))
+
+
+@pytest.mark.parametrize("state", ["shared", "global"])
+def test_dp_kernels_long_member_equal_plain(cuda, state, monkeypatch):
+    """Members of about 5,000 bases against a 5,000-base center: the row
+    state in shared memory, and (budget 0) in the global scratch."""
+    from multiprime_tpu_torch.align import centerstar
+    from multiprime_tpu_torch.align import device as adev
+    if state == "global":
+        monkeypatch.setattr(adev, "_DP_SMEM_BYTES", 0)
+    rng = np.random.default_rng(83)
+    c = _dp_codes(rng, 5000)
+    b = c.copy()
+    b[rng.random(5000) < 0.05] = 1
+    b = np.insert(np.delete(b, rng.integers(0, 5000, size=40)),
+                  rng.integers(0, 4900, size=35), 3)
+    members = [b, _dp_codes(rng, 4900), np.tile(c[:100], 52)]
+    seqs = ["".join("ACGT"[x] for x in s) for s in [c, *members]]
+    _, rows = centerstar.center_star_msa(
+        [str(i) for i in range(4)], seqs, backend="device", device=cuda)
+    dp_blocks_equal_plain(cuda, c, members, 2, rows)
+
+
+def test_dp_wrappers_refuse_bad_inputs(cuda):
+    from multiprime_tpu_torch.align import device as adev
+    c = torch.zeros(10, dtype=torch.int32, device=cuda)
+    bmat = torch.zeros((4, 12), dtype=torch.int32, device=cuda)
+    lbs = torch.full((4,), 12, dtype=torch.int32, device=cuda)
+    for bad in (bmat.to(torch.int64), bmat[:, ::2]):
+        with pytest.raises(ValueError, match="bmat"):
+            adev.gotoh_block(c, bad, lbs)
+    for bad in (c.to(torch.int8), torch.zeros(20, dtype=torch.int32,
+                                              device=cuda)[::2]):
+        with pytest.raises(ValueError, match="c must"):
+            adev.gotoh_block(bad, bmat, lbs)
+    with pytest.raises(ValueError, match="lbs"):
+        adev.gotoh_block(c, bmat, lbs.cpu())
+    with pytest.raises(ValueError, match="lbs"):
+        adev.gotoh_block(c, bmat, lbs + 1)
+    codes = torch.zeros((3, 8), dtype=torch.int64, device=cuda)
+    lens = torch.full((3,), 8, dtype=torch.int64, device=cuda)
+    s4 = torch.zeros((5, 3, 6), dtype=torch.float32, device=cuda)
+    occ = torch.zeros((5, 3), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="res_codes"):
+        adev.refine_block(codes.to(torch.int32), lens, s4, occ, occ, occ)
+    with pytest.raises(ValueError, match="res_codes"):
+        adev.refine_block(torch.zeros((3, 16), dtype=torch.int64,
+                                      device=cuda)[:, ::2], lens, s4, occ,
+                          occ, occ)
+    with pytest.raises(ValueError, match="s4"):
+        adev.refine_block(codes, lens, s4.double(), occ, occ, occ)
+    with pytest.raises(ValueError, match="go_c"):
+        adev.refine_block(codes, lens, s4, torch.zeros(
+            (3, 5), dtype=torch.float32, device=cuda).t(), occ, occ)
+    with pytest.raises(ValueError, match="occ2"):
+        adev.refine_block(codes, lens, s4, occ, occ, occ[:4])
+    with pytest.raises(ValueError, match="lens"):
+        adev.refine_block(codes, lens + 1, s4, occ, occ, occ)
+    with pytest.raises(ValueError, match="codes"):
+        adev.refine_block(codes + 6, lens, s4, occ, occ, occ)
+
+
 _FORK_AFTER_PROBE = r"""
 import multiprocessing, torch
 def work(_):
