@@ -42,7 +42,8 @@ the final line):
    results path: every output file byte-identical to phase 4's (but
    pipeline_metrics.json and logs), Stage A and the align DP served by the
    card, the Gotoh kernel launched once for each of the run's Gotoh
-   blocks; both runs' stage seconds;
+   blocks (the warp kernel for every block no wider than its limit); both
+   runs' stage seconds;
 10. the device ops on the largest cluster of that run, each equal to its
    counterpart and timed: design_stats_blocks on the card vs the CPU (and
    the cluster's design with host vs device Stage A);
@@ -50,7 +51,10 @@ the final line):
    refine_pass_device vs native.refine_realign on its members with seeded
    indels; the Gotoh and refine DP kernels (csrc/gotoh_dp.cu,
    csrc/refine_dp.cu) against their plain versions on the card on one
-   512-member Gotoh block, one 256-row refine block and a tie-heavy grid,
+   512-member Gotoh block (both Gotoh kernels: the warp kernel its width
+   takes, and the CTA kernel forced; each also against native, with its
+   ptxas registers and spills), one 256-row refine block and a tie-heavy
+   grid,
    with CUDA-event times of kernel and plain version, the trace's share
    (the kernels' clock64 counters), the native DP's time, the bound, and
    the launches of one block at full depth (torch.profiler), peak device
@@ -124,8 +128,9 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 # multiprime_tpu/align/device.py _build's row: the substitution 2 (compare,
 # select), F and fcont 4 (2 adds, max, compare), diag, vert, p, t, the
 # cummax, E, econt and V 1 each, E > vert and its select 2, the pointer
-# byte 4 (csrc/gotoh_dp.cu does 28, computing t and the running max in
-# both of its passes and packing the byte in two steps); in fp32 for
+# byte 4 (csrc/gotoh_dp.cu's CTA kernel does 28, computing t and the
+# running max in both of its passes and packing the byte in two steps; its
+# warp kernel about 23 instructions a cell); in fp32 for
 # _build_refine's col: the open add, compare, max and add, the profile
 # term's subtract and add, the skip compare and select
 GOTOH_OPS_PER_CELL = 20
@@ -274,24 +279,38 @@ def phase_build(args, report):
     report["ptxas"] = {}
     for name, log in sorted(_cuda.BUILD_LOG.items()):
         for entry in ptxas_entries(log):
-            say("  ptxas %s%s: %d registers, %d B spill stores, %d B spill "
+            say("  ptxas %s %s: %d registers, %d B spill stores, %d B spill "
                 "loads, %d B static shared memory" % (
-                    name, entry["template"], entry["registers"],
+                    name, entry["kernel"], entry["registers"],
                     entry["spill_stores"], entry["spill_loads"],
                     entry["smem"]))
             report["ptxas"].setdefault(name, []).append(entry)
 
 
+def kernel_label(mangled):
+    """``name<N>`` (or ``name``) of a mangled kernel: the identifier that
+    ends in ``_kernel``, and its integer template argument (the k-steps of
+    a tensor-core kernel, the columns a lane of the Gotoh warp kernel)."""
+    name = mangled
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group(0)
+        for i in range(len(run)):
+            ident = mangled[m.end():m.end() + int(run[i:])]
+            if ident.endswith("_kernel") and ident.isidentifier():
+                name = ident
+    arg = re.search(r"ILi(\d+)E", mangled)
+    return name + ("<%s>" % arg.group(1) if arg else "")
+
+
 def ptxas_entries(log):
-    """One dict per compiled kernel of nvcc's -Xptxas -v output: its
-    template argument (the k-steps of a tensor-core kernel), registers,
-    spill stores and loads, static shared memory."""
+    """One dict per compiled kernel of nvcc's -Xptxas -v output: its name
+    with its template argument, registers, spill stores and loads, static
+    shared memory."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            ks = re.search(r"ILi(\d+)E", m.group(1))
-            cur = {"template": " KS=%s" % ks.group(1) if ks else "",
+            cur = {"kernel": kernel_label(m.group(1)),
                    "registers": 0, "spill_stores": 0, "spill_loads": 0,
                    "smem": 0}
             out.append(cur)
@@ -1085,22 +1104,31 @@ def phase_device_run(args, report, work, res):
         say("  %-16s %10s | %s" % (stage, host_t.get(stage), dev_t.get(stage)))
     # the Gotoh kernel's launches in the run's cluster workers, against the
     # blocks the run's MSAs call for
-    _, _, gotoh_blocks = run_blocks(res)
+    from multiprime_tpu_torch.align import device as adev
+    _, _, gotoh_blocks, wide_blocks = run_blocks(res)
     gotoh_launches = backends.get("gotoh_dp_launches", 0)
+    warp_launches = backends.get("gotoh_dp_warp_launches", 0)
     say("phase 9 align stage %s s summed over workers (host run %s s); "
-        "gotoh_dp launches %d for gotoh_blocks_per_run %d; refine_dp "
-        "launches %d (refine_msa takes native)"
+        "gotoh_dp launches %d for gotoh_blocks_per_run %d, %d of them of "
+        "gotoh_dp_warp_kernel (%d blocks of MSAs wider than its %d "
+        "columns); refine_dp launches %d (refine_msa takes native)"
         % (dev_t.get("align"), host_t.get("align"), gotoh_launches,
-           gotoh_blocks, backends.get("refine_dp_launches", 0)))
+           gotoh_blocks, warp_launches, wide_blocks, adev._GOTOH_WARP_MAX_COLS,
+           backends.get("refine_dp_launches", 0)))
     if gotoh_launches != gotoh_blocks:
         fail("the device run made %d gotoh_dp launches for %d Gotoh blocks"
              % (gotoh_launches, gotoh_blocks))
+    if not gotoh_blocks - wide_blocks <= warp_launches <= gotoh_blocks:
+        fail("the device run's warp-kernel launches (%d) do not match its "
+             "%d Gotoh blocks, %d of them possibly wide"
+             % (warp_launches, gotoh_blocks, wide_blocks))
     report["device_run"] = {"wall_s": wall, "nproc": nproc,
                             "timings_s": dev_t, "stage_a_served": stage_a,
                             "align_served": align, "files": n_files,
                             "host_wall_s": report["run"]["wall_s"],
                             "host_timings_s": host_t,
                             "gotoh_dp_launches": gotoh_launches,
+                            "gotoh_dp_warp_launches": warp_launches,
                             "refine_dp_launches": backends.get(
                                 "refine_dp_launches", 0),
                             "gotoh_blocks_per_run": gotoh_blocks}
@@ -1184,27 +1212,33 @@ def with_indels(rng, seq):
 
 
 def run_blocks(res):
-    """(cluster sizes and names, Stage-A blocks, Gotoh blocks) of the run in
-    res: ceil(W / 512) Stage-A blocks a designed cluster, ceil((rows - 1) /
-    512) Gotoh blocks a cluster of more than one row."""
+    """(cluster sizes and names, Stage-A blocks, Gotoh blocks, wide Gotoh
+    blocks) of the run in res: ceil(W / 512) Stage-A blocks a designed
+    cluster, ceil((rows - 1) / 512) Gotoh blocks a cluster of more than one
+    row, wide ones those of a cluster whose MSA is wider than the Gotoh
+    warp kernel's limit (any of its blocks may take the CTA kernel)."""
+    from multiprime_tpu_torch.align import device as adev
     from multiprime_tpu_torch.models import mcdpd
     with open(os.path.join(res, "cluster.txt")) as f:
         sizes = [(int(n), name) for name, n in
                  (line.split("\t") for line in f.read().splitlines()[1:])]
     eng = mcdpd.DesignEngine(mcdpd.DesignParams(
         coverage=0.7, min_product=150, coordinate="2,3,-1"))
-    design_blocks = gotoh_blocks = 0
+    design_blocks = gotoh_blocks = wide_blocks = 0
     for n, name in sizes:
         _, chars = mcdpd.parse_msa(os.path.join(res, "Clusters_msa",
                                                 name + ".tmsa"))
         if chars.shape[0] > 1:
-            gotoh_blocks += -(-(chars.shape[0] - 1) // 512)
+            blocks = -(-(chars.shape[0] - 1) // 512)
+            gotoh_blocks += blocks
+            if chars.shape[1] + 1 > adev._GOTOH_WARP_MAX_COLS:
+                wide_blocks += blocks
         try:
             start, stop = eng.usable_span(chars)
         except ValueError:
             continue
         design_blocks += -(-max(stop - 18 - start, 0) // 512)
-    return sizes, design_blocks, gotoh_blocks
+    return sizes, design_blocks, gotoh_blocks, wide_blocks
 
 
 def same_op_codes(a, b):
@@ -1217,18 +1251,26 @@ def same_op_codes(a, b):
 def dp_grid_equal(dev):
     """The GPU tests' tie-heavy DP cases at 8 times their lengths (members
     of more than 256 bases give a thread two columns, 33 members in blocks
-    of 32 leave a block of one): gotoh_block and refine_block on the card
-    equal to their plain versions on the card -> blocks checked."""
+    of 32 leave a block of one): gotoh_block (the warp kernel, then the
+    CTA kernel forced) and refine_block on the card equal to their plain
+    versions on the card -> blocks checked."""
+    from multiprime_tpu_torch.align import device as adev
     from tests import test_torch_gpu as gpu_tests
     blocks = 0
+    limit = adev._GOTOH_WARP_MAX_COLS
     for name in gpu_tests.DP_CASES:
         c, members, block = gpu_tests.dp_case(name, scale=8)
         try:
             blocks += gpu_tests.dp_blocks_equal_plain(
                 dev, c, members, block, gpu_tests.dp_case_rows(c, members))
+            adev._GOTOH_WARP_MAX_COLS = 0
+            blocks += gpu_tests.gotoh_blocks_equal_plain(
+                dev, c, members, block, "cta")
         except AssertionError as e:
             fail("a DP kernel differs from its plain version on the %s case "
                  "(%s)" % (name, e))
+        finally:
+            adev._GOTOH_WARP_MAX_COLS = limit
     return blocks
 
 
@@ -1280,7 +1322,7 @@ def phase_device_ops(args, report, res):
     from multiprime_tpu_torch.utils import iupac
     from multiprime_tpu_torch.validate import scan as vscan
     dev = torch.device(DEVICE)
-    sizes, design_blocks, gotoh_blocks = run_blocks(res)
+    sizes, design_blocks, gotoh_blocks, _ = run_blocks(res)
     params = mcdpd.DesignParams(coverage=0.7, min_product=150,
                                 coordinate="2,3,-1")
     eng = mcdpd.DesignEngine(params)
@@ -1349,9 +1391,11 @@ def phase_device_ops(args, report, res):
     center = centerstar.pick_center(seqs)
     members = [codes[m] for m in range(len(seqs)) if m != center]
     before = adev.GOTOH_DP_LAUNCHES
+    before_warp = adev.GOTOH_DP_WARP_LAUNCHES
     got = adev.align_ops_batch_device(codes[center], members,
                                       as_codes=True, device=dev)
     cluster_launches = adev.GOTOH_DP_LAUNCHES - before
+    cluster_warp = adev.GOTOH_DP_WARP_LAUNCHES - before_warp
     nat = native.gotoh_ops_batch(codes[center], members)
     if nat is None:
         fail("native.gotoh_ops_batch is unavailable")
@@ -1361,53 +1405,102 @@ def phase_device_ops(args, report, res):
     if cluster_launches != -(-len(members) // 512):
         fail("align_ops_batch_device made %d gotoh_dp launches for %d "
              "members" % (cluster_launches, len(members)))
+    warp_blocks = sum(
+        adev.gotoh_kernel_plan(max(max(len(b) for b in members[lo:lo + 512]),
+                                   1))[0] == "gotoh_dp_warp"
+        for lo in range(0, len(members), 512))
+    if cluster_warp != warp_blocks:
+        fail("align_ops_batch_device made %d warp-kernel launches for %d "
+             "blocks of its width" % (cluster_warp, warp_blocks))
     _, all_seqs = vscan.parse_fasta(os.path.join(res, "Clusters_fa",
                                                  name + ".fa"))
     block = [centerstar._encode(with_indels(rng, s)) for s in all_seqs[:512]]
     c = codes[center]
-    _, call_ms, gotoh_peak = timed(lambda: adev.align_ops_batch_device(
-        c, block, as_codes=True, device=dev))
     t0 = time.perf_counter()
     nat_block = native.gotoh_ops_batch(c, block)
     native_ms = (time.perf_counter() - t0) * 1e3
-    if not same_op_codes(adev.align_ops_batch_device(
-            c, block, as_codes=True, device=dev), nat_block):
-        fail("align_ops_batch_device differs from native.gotoh_ops_batch on "
-             "the 512-member block")
     c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
     bmat, lbs = adev.gotoh_block_inputs(block, device=dev)
     lbs_h = lbs.cpu().numpy().astype(np.int64)
     la, lb, mb = len(c), bmat.shape[1], len(block)
     cells = la * int((lbs_h + 1).sum())
-    gk = measure_dp(
-        "gotoh_block", adev.gotoh_block,
-        lambda c_, b_, l_: adev.gotoh_block_reference(c, b_, l_, dev),
-        (c_dev, bmat, lbs), mb,
-        cells + 4 * la + 4 * mb * lb + 4 * mb + mb * (la + int(lbs_h.max())),
-        GOTOH_OPS_PER_CELL * cells, INT32_OPS_PER_S)
-    n, acts, busy, prof = profiled_launches(
-        lambda: adev.align_ops_batch_device(c, block, as_codes=True,
-                                            device=dev), "gotoh_dp_kernel")
-    if n != 1:
-        fail("one Gotoh block made %d gotoh_dp launches" % n)
-    gk.update(native_ms=native_ms, launches_per_block=n,
-              activities_per_block=acts, busy_ms_per_block=busy,
-              profile_per_block=prof, call_ms=call_ms, peak_mib=gotoh_peak,
-              cluster_launches=cluster_launches, la=la, M=mb,
-              lb_max=int(lbs_h.max()), cells=cells)
+    # both Gotoh kernels on the block: the warp kernel (the one the block's
+    # width takes), then the CTA kernel forced by the dispatch limit, then
+    # both timed again in the other order
+    limits = {"gotoh_dp_warp_kernel": adev._GOTOH_WARP_MAX_COLS,
+              "gotoh_dp_kernel": 0}
+    if adev.gotoh_kernel_plan(lb)[0] != "gotoh_dp_warp":
+        fail("phase 10's block (lb %d) is too wide for the warp kernel" % lb)
+    ptxas = {e["kernel"]: e for e in report["ptxas"].get("gotoh_dp", [])}
+
+    def forced(kernel, fn):
+        saved = adev._GOTOH_WARP_MAX_COLS
+        adev._GOTOH_WARP_MAX_COLS = limits[kernel]
+        try:
+            return fn()
+        finally:
+            adev._GOTOH_WARP_MAX_COLS = saved
+
+    def one_kernel(kernel):
+        _, call_ms, peak = timed(lambda: adev.align_ops_batch_device(
+            c, block, as_codes=True, device=dev))
+        if not same_op_codes(adev.align_ops_batch_device(
+                c, block, as_codes=True, device=dev), nat_block):
+            fail("align_ops_batch_device (%s) differs from "
+                 "native.gotoh_ops_batch on the 512-member block" % kernel)
+        m = measure_dp(
+            "gotoh_block (%s)" % kernel, adev.gotoh_block,
+            lambda c_, b_, l_: adev.gotoh_block_reference(c, b_, l_, dev),
+            (c_dev, bmat, lbs), mb, cells + 4 * la + 4 * mb * lb + 4 * mb
+            + mb * (la + int(lbs_h.max())), GOTOH_OPS_PER_CELL * cells,
+            INT32_OPS_PER_S)
+        n, acts, busy, prof = profiled_launches(
+            lambda: adev.align_ops_batch_device(c, block, as_codes=True,
+                                                device=dev), kernel)
+        other = sum(v[1] for k, v in prof.items()
+                    if "gotoh_dp" in k and kernel not in k)
+        if n != 1 or other:
+            fail("one Gotoh block made %d %s launches and %d of the other "
+                 "Gotoh kernel" % (n, kernel, other))
+        name_k = kernel
+        if kernel == "gotoh_dp_warp_kernel":
+            name_k += "<%d>" % adev.gotoh_kernel_plan(lb)[1]
+        pt = ptxas.get(name_k, {})
+        m.update(kernel=name_k, launches_per_block=n,
+                 activities_per_block=acts, busy_ms_per_block=busy,
+                 profile_per_block=prof, call_ms=call_ms, peak_mib=peak,
+                 registers=pt.get("registers"),
+                 spill_bytes=pt.get("spill_stores", 0)
+                 + pt.get("spill_loads", 0) if pt else None)
+        return m
+    gotoh = {k: forced(k, lambda: one_kernel(k)) for k in limits}
+    for k in reversed(list(limits)):
+        gotoh[k]["ms_again"] = forced(k, lambda: cuda_ms(
+            lambda: adev.gotoh_block(c_dev, bmat, lbs), 10))
+    gk = dict(gotoh["gotoh_dp_warp_kernel"], native_ms=native_ms,
+              cluster_launches=cluster_launches,
+              cluster_warp_launches=cluster_warp, la=la, M=mb,
+              lb_max=int(lbs_h.max()), cells=cells,
+              cta=gotoh["gotoh_dp_kernel"])
     out["gotoh_dp"] = gk
     say("phase 10 align_ops_batch_device: %d members == native in %d "
-        "gotoh_dp launches; one block la=%d M=%d lb_max=%d: gotoh_block == "
-        "its plain version (max_abs_err %d); kernel %.4f ms (trace %.1f%% "
-        "of its cycles, %.4f ms), plain %.1f ms, native %.1f ms (%d host "
-        "threads), bound %.4f ms (%s, %.1f%%); the call %.1f ms, peak %.1f "
-        "MiB; torch.profiler, full depth: %s gotoh_dp launch(es) of %s CUDA "
-        "activities, %s device ms: %s"
-        % (len(members), cluster_launches, la, mb, gk["lb_max"],
-           gk["max_abs_err"], gk["ms"], 100 * gk["trace_share"],
-           gk["trace_ms"], gk["plain_ms"], native_ms, os.cpu_count() or 1,
-           gk["bound_ms"], gk["bound_by"], 100 * gk["bound_ms"] / gk["ms"],
-           call_ms, gotoh_peak, n, acts, busy, json.dumps(prof)))
+        "gotoh_dp launches (%d of gotoh_dp_warp_kernel); one block la=%d "
+        "M=%d lb_max=%d, native %.1f ms (%d host threads):"
+        % (len(members), cluster_launches, cluster_warp, la, mb,
+           gk["lb_max"], native_ms, os.cpu_count() or 1))
+    for k, m in gotoh.items():
+        say("  %s: gotoh_block == its plain version and native (max_abs_err "
+            "%d); kernel %.4f ms, again %.4f ms (trace %.1f%% of its cycles, "
+            "%.4f ms), plain %.1f ms, bound %.4f ms (%s, %.1f%%); ptxas %s "
+            "registers, %s B spilled; the call %.1f ms, peak %.1f MiB; "
+            "torch.profiler, full depth: %s launch(es) of %s CUDA "
+            "activities, %s device ms: %s"
+            % (m["kernel"], m["max_abs_err"], m["ms"], m["ms_again"],
+               100 * m["trace_share"], m["trace_ms"], m["plain_ms"],
+               m["bound_ms"], m["bound_by"], 100 * m["bound_ms"] / m["ms"],
+               m["registers"], m["spill_bytes"], m["call_ms"], m["peak_mib"],
+               m["launches_per_block"], m["activities_per_block"],
+               m["busy_ms_per_block"], json.dumps(m["profile_per_block"])))
 
     # the refine DP: one pass over the cluster's center-star rows, then
     # one block of 256 rows
@@ -1467,8 +1560,9 @@ def phase_device_ops(args, report, res):
            rk["pass_ms_per_block"], ref_peak, n, acts, busy,
            json.dumps(prof)))
     blocks = dp_grid_equal(dev)
-    say("phase 10 tie grid: gotoh_block and refine_block == their plain "
-        "versions on the card on %d blocks (homopolymers, tandem repeats, "
+    say("phase 10 tie grid: gotoh_block (both kernels) and refine_block == "
+        "their plain versions on the card on %d blocks (homopolymers, "
+        "tandem repeats, "
         "members equal to the center, codes 4 and up, empty members, a "
         "one-base center, one member, 33 members in blocks of 32)" % blocks)
     say("phase 10 blocks a run: %d Stage-A blocks, %d Gotoh blocks, 0 refine "
@@ -2417,6 +2511,29 @@ def dp_entry(m, name, source, replaces, main_path, by_path):
                 launches_by_path=by_path, trace_share=m["trace_share"])
 
 
+def gotoh_entry(report):
+    """The Gotoh DP's entry of the kernels line: the numbers of the warp
+    kernel, which serves the main path's blocks, and under
+    ``cuda_kernels`` both CUDA kernels of csrc/gotoh_dp.cu, each with its
+    launches by path and its times on phase 10's block."""
+    g, run = report["gotoh_dp"], report["device_run"]
+    by_path = {"run": run["gotoh_dp_launches"],
+               "cluster": g["cluster_launches"]}
+    warp = {"run": run["gotoh_dp_warp_launches"],
+            "cluster": g["cluster_warp_launches"]}
+    kernels = []
+    for m, paths in ((g, warp), (g["cta"], {k: by_path[k] - warp[k]
+                                            for k in by_path})):
+        kernels.append({"kernel": m["kernel"], "launches_by_path": paths,
+                        **{k: m[k] for k in (
+                            "ms", "ms_again", "plain_ms", "bound_ms",
+                            "trace_share", "registers", "spill_bytes",
+                            "peak_mib")}})
+    return dict(dp_entry(g, "gotoh_dp", "gotoh_dp.cu",
+                         "multiprime_tpu/align/device.py:38", "run",
+                         by_path), cuda_kernels=kernels)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2493,10 +2610,7 @@ def main():
         kernel_entry(report["hit_window_bitmap"], "hit_window_bitmap",
                      "hit_window_bitmap.cu",
                      "multiprime_tpu/ops/mismatch_scan.py:315"),
-        dp_entry(report["gotoh_dp"], "gotoh_dp", "gotoh_dp.cu",
-                 "multiprime_tpu/align/device.py:38", "run",
-                 {"run": report["device_run"]["gotoh_dp_launches"],
-                  "cluster": report["gotoh_dp"]["cluster_launches"]}),
+        gotoh_entry(report),
         dp_entry(report["refine_dp"], "refine_dp", "refine_dp.cu",
                  "multiprime_tpu/align/device.py:122", "refine_pass_device",
                  {"run": report["device_run"]["refine_dp_launches"],

@@ -11,7 +11,13 @@ columns cross to the host.  Results equal the NumPy and native DPs: same
 scores, same tie-breaking.
 
 * ``align_ops_batch_device`` runs ``gotoh_block`` a member block:
-  ``csrc/gotoh_dp.cu`` for CUDA tensors; for CPU tensors its plain version
+  ``csrc/gotoh_dp.cu`` for CUDA tensors, one of its two kernels chosen by
+  the block's width alone (``gotoh_kernel_plan``): ``gotoh_dp_warp_kernel``
+  (one warp a member, the row in registers, no block barrier) while lb + 1
+  <= ``_GOTOH_WARP_MAX_COLS`` (1280), ``gotoh_dp_kernel`` (one CTA a
+  member, the row in shared or global memory) past it; both are counted
+  in ``GOTOH_DP_LAUNCHES``, the warp kernel also in
+  ``GOTOH_DP_WARP_LAUNCHES``.  For CPU tensors its plain version
   ``gotoh_block_reference``, a Python loop over center rows of ~25 vector
   ops on ``[M, lb+1]`` int32 lanes, the within-row affine-E dependency
   folded into ``torch.cummax`` like the NumPy prefix max, and a trace loop
@@ -40,8 +46,11 @@ from ..utils import link as linkmod
 from .centerstar import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
 
 # launches of each CUDA kernel in this process (never of its plain
-# version): a run reads them to show that its path went through the kernels
+# version): a run reads them to show that its path went through the kernels.
+# GOTOH_DP_LAUNCHES counts both Gotoh kernels, GOTOH_DP_WARP_LAUNCHES the
+# warp kernel's share of them
 GOTOH_DP_LAUNCHES = 0
+GOTOH_DP_WARP_LAUNCHES = 0
 REFINE_DP_LAUNCHES = 0
 
 _NEG = -1 << 28
@@ -55,6 +64,13 @@ _OP_CHARS = np.array(["M", "D", "I", ""], dtype=object)
 # past it the state moves to a global scratch
 _DP_THREADS = 256
 _DP_SMEM_BYTES = 160 * 1024
+
+# the Gotoh warp kernel's columns a lane (its instantiations in
+# csrc/gotoh_dp.cu; at 48 and more the row no longer fits the registers and
+# spills) and the widest block it takes, lb + 1 columns; wider blocks take
+# the CTA kernel (a test lowers the limit to force that)
+_GOTOH_WARP_KS = (8, 16, 24, 32, 40)
+_GOTOH_WARP_MAX_COLS = 32 * _GOTOH_WARP_KS[-1]
 
 
 def _round_up(x, mult):
@@ -165,18 +181,31 @@ def gotoh_block_reference(c, bmat, lbs, dev):
     return ops.T
 
 
+def gotoh_kernel_plan(lb):
+    """The Gotoh kernel of a block of member width ``lb``, by shape only:
+    (launcher, its size argument, pointer scratch pitch).  While lb + 1 <=
+    ``_GOTOH_WARP_MAX_COLS``: ("gotoh_dp_warp", K, 32 * K), K the smallest
+    of ``_GOTOH_WARP_KS`` with 32 * K >= lb + 1 columns; past it
+    ("gotoh_dp", ``_DP_THREADS``, lb + 1)."""
+    if lb + 1 <= _GOTOH_WARP_MAX_COLS:
+        k = next(k for k in _GOTOH_WARP_KS if 32 * k >= lb + 1)
+        return "gotoh_dp_warp", k, 32 * k
+    return "gotoh_dp", _DP_THREADS, lb + 1
+
+
 def gotoh_block(c, bmat, lbs, *, clocks=None):
     """Row DP + back-trace of one member block: int32 center codes ``c``
     [la], member codes ``bmat`` int32 [M, lb] (4 past each end) and their
     lengths ``lbs`` int32 [M] -> uint8 ops [M, la + max(lbs)] in reverse
     order, ``_PAD_OP`` once a member's trace is done.
 
-    CUDA tensors launch the CUDA kernel ``csrc/gotoh_dp.cu`` (or raise):
-    one CTA a member runs every row and the trace, one launch a block.
-    ``clocks`` (int64 [M, 3], optional) receives each CTA's clock64 at its
-    start and before and after its trace.  CPU tensors take the plain
-    version."""
-    global GOTOH_DP_LAUNCHES
+    CUDA tensors launch a CUDA kernel of ``csrc/gotoh_dp.cu`` (or raise),
+    the one ``gotoh_kernel_plan(lb)`` names: one warp (blocks up to
+    ``_GOTOH_WARP_MAX_COLS`` columns) or one CTA a member runs every row
+    and the trace, one launch a block.  ``clocks`` (int64 [M, 3],
+    optional) receives each member's clock64 at its start and before and
+    after its trace.  CPU tensors take the plain version."""
+    global GOTOH_DP_LAUNCHES, GOTOH_DP_WARP_LAUNCHES
     dev = bmat.device
     if dev.type == "cpu":
         return gotoh_block_reference(np.asarray(c), bmat, lbs, dev)
@@ -201,15 +230,20 @@ def gotoh_block(c, bmat, lbs, *, clocks=None):
     ops = torch.empty((m, steps), dtype=torch.uint8, device=dev)
     if ops.numel() == 0:
         return ops
-    ptr = torch.empty(m * la * (lb + 1), dtype=torch.uint8, device=dev)
-    state, region = _row_state(m, lb + 1, 10, dev)
+    name, size, pitch = gotoh_kernel_plan(lb)
+    ptr = torch.empty(m * la * pitch, dtype=torch.uint8, device=dev)
+    args = (c.data_ptr(), la, bmat.data_ptr(), lbs.data_ptr(), m, lb,
+            ptr.data_ptr(), ops.data_ptr(), steps)
+    if name == "gotoh_dp":
+        # the CTA kernel's row state: shared memory or a global scratch
+        state, region = _row_state(m, lb + 1, 10, dev)
+        args += (_ptr_or_null(state), region)
     with torch.cuda.device(dev):
-        _launch(lib, "gotoh_dp", c.data_ptr(), la, bmat.data_ptr(),
-                lbs.data_ptr(), m, lb, ptr.data_ptr(), ops.data_ptr(), steps,
-                _ptr_or_null(state), region, _DP_THREADS,
-                _ptr_or_null(clocks),
+        _launch(lib, name, *args, size, _ptr_or_null(clocks),
                 torch.cuda.current_stream(dev).cuda_stream)
     GOTOH_DP_LAUNCHES += 1
+    if name == "gotoh_dp_warp":
+        GOTOH_DP_WARP_LAUNCHES += 1
     return ops
 
 

@@ -93,35 +93,41 @@ _PTR = ctypes.c_void_p             # pointers and the stream: never 32-bit
 _I64, _INT = ctypes.c_int64, ctypes.c_int
 
 
-def _binder(*launch_args):
-    """Binder of a source whose ``<name>_launch`` takes ``launch_args`` and
-    returns a CUDA error code, with ``<name>_error_string`` beside it."""
-    def bind(lib, name):
-        launch = getattr(lib, name + "_launch")
+def _bind(lib, launchers):
+    """Set the argument types of each ``<prefix>_launch`` of a library
+    (``launchers``: prefix -> argument types; each returns a CUDA error
+    code) and of the ``<prefix>_error_string`` beside it."""
+    for prefix, launch_args in launchers.items():
+        launch = getattr(lib, prefix + "_launch")
         launch.restype = ctypes.c_int
         launch.argtypes = list(launch_args)
-        err = getattr(lib, name + "_error_string")
+        err = getattr(lib, prefix + "_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-    return bind
 
 
-# masks, planes, [suffix planes,] output, N, L, P, plen, [mm, term,]
-# stream
-_BINDERS = {
-    "hit_codes": _binder(_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT,
-                         _INT, _INT, _PTR),
-    "hit_window_bitmap": _binder(_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64,
-                                 _INT, _INT, _INT, _PTR),
-    "match_counts": _binder(_PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR),
-    # c, la, bmat, lbs, M, lb, pointers, ops, steps, row scratch, region
-    # bytes, threads, clocks, stream
-    "gotoh_dp": _binder(_PTR, _I64, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I64,
-                        _PTR, _I64, _INT, _PTR, _PTR),
+# the launchers of each library: masks, planes, [suffix planes,] output,
+# N, L, P, plen, [mm, term,] stream for the scan kernels
+_LAUNCHERS = {
+    "hit_codes": {"hit_codes": (_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64,
+                                _INT, _INT, _INT, _PTR)},
+    "hit_window_bitmap": {"hit_window_bitmap": (
+        _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _INT, _INT, _PTR)},
+    "match_counts": {"match_counts": (_PTR, _PTR, _PTR, _I64, _I64, _I64,
+                                      _INT, _PTR)},
+    # c, la, bmat, lbs, M, lb, pointers, ops, steps, then row scratch,
+    # region bytes, threads (the CTA kernel) or columns a lane (the warp
+    # kernel), then clocks, stream
+    "gotoh_dp": {
+        "gotoh_dp": (_PTR, _I64, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I64,
+                     _PTR, _I64, _INT, _PTR, _PTR),
+        "gotoh_dp_warp": (_PTR, _I64, _PTR, _PTR, _I64, _I64, _PTR, _PTR,
+                          _I64, _INT, _PTR, _PTR)},
     # res_codes, lens, M, lmax, s4, go_c, ge_c, occ2, C, pointers, cols,
     # row scratch, region bytes, threads, clocks, stream
-    "refine_dp": _binder(_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR, _PTR,
-                         _I64, _PTR, _PTR, _PTR, _I64, _INT, _PTR, _PTR),
+    "refine_dp": {"refine_dp": (_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR,
+                                _PTR, _I64, _PTR, _PTR, _PTR, _I64, _INT,
+                                _PTR, _PTR)},
 }
 
 
@@ -132,6 +138,6 @@ def load(name):
         if lib is None:
             build([name])
             lib = ctypes.CDLL(_paths(name)[1])
-            _BINDERS[name](lib, name)
+            _bind(lib, _LAUNCHERS[name])
             _libs[name] = lib
         return lib

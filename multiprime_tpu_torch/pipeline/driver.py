@@ -219,6 +219,7 @@ def _dp_launches():
     """{kernel: launches} of the device DP kernels in this process so far."""
     from ..align import device as adev
     return {"gotoh_dp": adev.GOTOH_DP_LAUNCHES,
+            "gotoh_dp_warp": adev.GOTOH_DP_WARP_LAUNCHES,
             "refine_dp": adev.REFINE_DP_LAUNCHES}
 
 
@@ -232,7 +233,8 @@ class Pipeline:
         self.served = {}
         # launches of the device DP kernels in the cluster stages, summed
         # over the workers
-        self.dp_launches = {"gotoh_dp": 0, "refine_dp": 0}
+        self.dp_launches = {"gotoh_dp": 0, "gotoh_dp_warp": 0,
+                            "refine_dp": 0}
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
                                         cfg.virus_name + ".fa")
@@ -416,6 +418,7 @@ class Pipeline:
             info["scan_backend"] = vscan.LAST_BACKEND
         info["hit_codes_launches"] = ms.HIT_CODES_LAUNCHES
         info["gotoh_dp_launches"] = self.dp_launches["gotoh_dp"]
+        info["gotoh_dp_warp_launches"] = self.dp_launches["gotoh_dp_warp"]
         info["refine_dp_launches"] = self.dp_launches["refine_dp"]
         return info
 

@@ -208,14 +208,44 @@ def test_dp_wrappers_launch_or_raise_off_the_cpu(monkeypatch):
     monkeypatch.setattr(tdev, "gotoh_block_reference", plain)
     monkeypatch.setattr(tdev, "refine_block_reference", plain)
     meta = torch.device("meta")
-    with pytest.raises(Sentinel):
-        tdev.gotoh_block(torch.zeros(7, dtype=torch.int32, device=meta),
-                         torch.zeros((3, 9), dtype=torch.int32, device=meta),
-                         torch.zeros(3, dtype=torch.int32, device=meta))
+    # blocks on each side of the warp kernel's limit (lb + 1 = 10, 1281)
+    for lb in (9, tdev._GOTOH_WARP_MAX_COLS):
+        with pytest.raises(Sentinel):
+            tdev.gotoh_block(torch.zeros(7, dtype=torch.int32, device=meta),
+                             torch.zeros((3, lb), dtype=torch.int32,
+                                         device=meta),
+                             torch.zeros(3, dtype=torch.int32, device=meta))
     f = torch.zeros((5, 3), dtype=torch.float32, device=meta)
     with pytest.raises(Sentinel):
         tdev.refine_block(torch.zeros((3, 4), dtype=torch.int64, device=meta),
                           torch.zeros(3, dtype=torch.int64, device=meta),
                           torch.zeros((5, 3, 6), dtype=torch.float32,
                                       device=meta), f, f, f)
-    assert loaded == ["gotoh_dp", "refine_dp"]
+    assert loaded == ["gotoh_dp", "gotoh_dp", "refine_dp"]
+
+
+@pytest.mark.parametrize("lb", [0, 1, 30, 31, 32, 254, 255, 256, 511, 512,
+                                767, 1023, 1278, 1279, 1280, 2047, 5000])
+def test_gotoh_kernel_plan_by_width(lb):
+    """The Gotoh dispatch by the block's width alone: the warp kernel with
+    the smallest K of 8, 16, ..., 40 columns a lane such that 32K >= lb + 1
+    (and a 32K pitch) up to 1280 columns, the CTA kernel (256 threads,
+    pitch lb + 1) past them."""
+    if lb + 1 <= 1280:
+        k = -(-(lb + 1) // 256) * 8
+        assert 32 * k >= lb + 1 and (k == 8 or 32 * (k - 8) < lb + 1)
+        assert tdev.gotoh_kernel_plan(lb) == ("gotoh_dp_warp", k, 32 * k)
+    else:
+        assert tdev.gotoh_kernel_plan(lb) == ("gotoh_dp", 256, lb + 1)
+
+
+def test_gotoh_kernel_plan_follows_the_limit(monkeypatch):
+    """The limit the GPU tests and the smoke check lower to force the CTA
+    kernel: at 0 every width takes it, at 256 only blocks of up to 256
+    columns keep the warp kernel."""
+    monkeypatch.setattr(tdev, "_GOTOH_WARP_MAX_COLS", 0)
+    assert tdev.gotoh_kernel_plan(0) == ("gotoh_dp", 256, 1)
+    assert tdev.gotoh_kernel_plan(900) == ("gotoh_dp", 256, 901)
+    monkeypatch.setattr(tdev, "_GOTOH_WARP_MAX_COLS", 256)
+    assert tdev.gotoh_kernel_plan(255) == ("gotoh_dp_warp", 8, 256)
+    assert tdev.gotoh_kernel_plan(256) == ("gotoh_dp", 256, 257)

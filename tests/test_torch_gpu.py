@@ -418,21 +418,33 @@ def dp_case_rows(c, members):
     return rows
 
 
-def dp_blocks_equal_plain(dev, c, members, block, rows):
-    """Each Gotoh and refine block of a case: the kernel on ``dev`` equals
-    its plain version on ``dev``, one launch a block -> blocks checked."""
+def gotoh_blocks_equal_plain(dev, c, members, block, gotoh="warp"):
+    """Each Gotoh block of a case: the kernel on ``dev`` equals its plain
+    version on ``dev``, one launch a block, of the kernel named by
+    ``gotoh`` ("warp": gotoh_dp_warp_kernel, "cta": gotoh_dp_kernel)."""
     from multiprime_tpu_torch.align import device as adev
-    from multiprime_tpu_torch.align import refine
     c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
     for lo in range(0, len(members), block):
         bmat, lbs = adev.gotoh_block_inputs(members[lo:lo + block], device=dev)
         before = adev.GOTOH_DP_LAUNCHES
+        before_warp = adev.GOTOH_DP_WARP_LAUNCHES
         got = adev.gotoh_block(c_dev, bmat, lbs)
         assert adev.GOTOH_DP_LAUNCHES == before + 1
+        assert adev.GOTOH_DP_WARP_LAUNCHES == before_warp + (gotoh == "warp")
         want = adev.gotoh_block_reference(c, bmat, lbs, dev)
         torch.cuda.synchronize()
         assert got.shape == want.shape and torch.equal(got, want), \
-            "gotoh block at %d" % lo
+            "gotoh block at %d (%s kernel)" % (lo, gotoh)
+    return -(-len(members) // block)
+
+
+def dp_blocks_equal_plain(dev, c, members, block, rows, gotoh="warp"):
+    """Each Gotoh and refine block of a case: the kernel on ``dev`` equals
+    its plain version on ``dev``, one launch a block (the Gotoh blocks on
+    the kernel named by ``gotoh``) -> blocks checked."""
+    from multiprime_tpu_torch.align import device as adev
+    from multiprime_tpu_torch.align import refine
+    gotoh_blocks_equal_plain(dev, c, members, block, gotoh)
     res_chars, res_codes, lens, f6, occ, _ = refine.device_pass_inputs(rows)
     for lo in range(0, len(rows), block):
         blk = adev.refine_block_inputs(res_codes, lens, f6, occ,
@@ -455,6 +467,47 @@ def test_dp_kernels_equal_plain_on_tie_grid(cuda, case):
     dp_blocks_equal_plain(cuda, c, members, block, dp_case_rows(c, members))
 
 
+@pytest.mark.parametrize("case", DP_CASES)
+def test_gotoh_cta_kernel_equal_plain_on_tie_grid(cuda, case, monkeypatch):
+    """The tie-heavy cases with the Gotoh dispatch forced to the CTA kernel
+    (gotoh_dp_kernel, the one for blocks too wide for a warp), against the
+    plain version; the test above takes the warp kernel on the same
+    blocks."""
+    from multiprime_tpu_torch.align import device as adev
+    monkeypatch.setattr(adev, "_GOTOH_WARP_MAX_COLS", 0)
+    c, members, block = dp_case(case)
+    gotoh_blocks_equal_plain(cuda, c, members, block, "cta")
+
+
+# block widths lb + 1 at each boundary of the warp kernel's columns a lane
+# (32K - 1, 32K, 32K + 1 for K = 8, 16, ..., 40: 1281 is one past its
+# limit, where the CTA kernel takes over)
+WARP_EDGE_COLS = sorted({n for k in range(8, 41, 8)
+                         for n in (32 * k - 1, 32 * k, 32 * k + 1)})
+
+
+@pytest.mark.parametrize("cols", WARP_EDGE_COLS)
+def test_gotoh_kernels_at_column_boundaries(cuda, cols):
+    """Blocks whose lb + 1 sits at each K boundary of the warp kernel and
+    one past its limit (1280 columns), where the CTA kernel takes over;
+    members that end inside lane 0, on a lane's last or first column, at
+    the block's width, and an empty one: equal to the plain version."""
+    from multiprime_tpu_torch.align import device as adev
+    rng = np.random.default_rng(cols)
+    k = -(-cols // 256) * 8
+    lb = cols - 1
+    c = _dp_codes(rng, 48, 5)
+    long_member = _dp_codes(rng, lb)
+    long_member[:40] = np.where(c[:40] < 4, c[:40], 0)
+    lens = {0, 5, k - 1, k, 2 * k - 1, 2 * k, lb - 1, min(lb, 60)}
+    members = [long_member] + [_dp_codes(rng, n) for n in sorted(lens)
+                               if 0 <= n < lb]
+    gotoh = "warp" if cols <= 1280 else "cta"
+    assert adev.gotoh_kernel_plan(lb)[0] == \
+        {"warp": "gotoh_dp_warp", "cta": "gotoh_dp"}[gotoh]
+    gotoh_blocks_equal_plain(cuda, c, members, len(members), gotoh)
+
+
 @pytest.mark.parametrize("state", ["shared", "global"])
 def test_dp_kernels_long_member_equal_plain(cuda, state, monkeypatch):
     """Members of about 5,000 bases against a 5,000-base center: the row
@@ -473,7 +526,7 @@ def test_dp_kernels_long_member_equal_plain(cuda, state, monkeypatch):
     seqs = ["".join("ACGT"[x] for x in s) for s in [c, *members]]
     _, rows = centerstar.center_star_msa(
         [str(i) for i in range(4)], seqs, backend="device", device=cuda)
-    dp_blocks_equal_plain(cuda, c, members, 2, rows)
+    dp_blocks_equal_plain(cuda, c, members, 2, rows, gotoh="cta")
 
 
 def test_dp_wrappers_refuse_bad_inputs(cuda):
