@@ -131,10 +131,14 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 # byte 4 (csrc/gotoh_dp.cu's CTA kernel does 28, computing t and the
 # running max in both of its passes and packing the byte in two steps; its
 # warp kernel about 23 instructions a cell); in fp32 for
-# _build_refine's col: the open add, compare, max and add, the profile
-# term's subtract and add, the skip compare and select
+# _build_refine's col: a cell the open add, compare, max and add, the
+# diagonal's add, the skip compare and select; a column and member the six
+# profile terms s4[k] - occ2 (JAX subtracts once a cell, but a term depends
+# only on the residue code; csrc/refine_dp.cu's warp kernel stages six) and
+# the end column's compare and select
 GOTOH_OPS_PER_CELL = 20
-REFINE_OPS_PER_CELL = 8
+REFINE_OPS_PER_CELL = 7
+REFINE_OPS_PER_COLUMN = 8
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core rate
 BF16_OPS_PER_S = 0.989e15      # H100 SXM dense bf16 tensor-core rate
 DEVICE = "cuda"
@@ -1131,6 +1135,8 @@ def phase_device_run(args, report, work, res):
                             "gotoh_dp_warp_launches": warp_launches,
                             "refine_dp_launches": backends.get(
                                 "refine_dp_launches", 0),
+                            "refine_dp_warp_launches": backends.get(
+                                "refine_dp_warp_launches", 0),
                             "gotoh_blocks_per_run": gotoh_blocks}
     shutil.rmtree(host_res, ignore_errors=True)
 
@@ -1252,25 +1258,32 @@ def dp_grid_equal(dev):
     """The GPU tests' tie-heavy DP cases at 8 times their lengths (members
     of more than 256 bases give a thread two columns, 33 members in blocks
     of 32 leave a block of one): gotoh_block (the warp kernel, then the
-    CTA kernel forced) and refine_block on the card equal to their plain
-    versions on the card -> blocks checked."""
+    CTA kernel forced) and refine_block (the warp kernel, then the CTA
+    kernel forced) on the card equal to their plain versions on the card
+    -> blocks checked."""
     from multiprime_tpu_torch.align import device as adev
     from tests import test_torch_gpu as gpu_tests
     blocks = 0
     limit = adev._GOTOH_WARP_MAX_COLS
+    ref_limit = adev._REFINE_WARP_MAX_POS
     for name in gpu_tests.DP_CASES:
         c, members, block = gpu_tests.dp_case(name, scale=8)
+        rows = gpu_tests.dp_case_rows(c, members)
         try:
             blocks += gpu_tests.dp_blocks_equal_plain(
-                dev, c, members, block, gpu_tests.dp_case_rows(c, members))
+                dev, c, members, block, rows)
             adev._GOTOH_WARP_MAX_COLS = 0
+            adev._REFINE_WARP_MAX_POS = 0
             blocks += gpu_tests.gotoh_blocks_equal_plain(
                 dev, c, members, block, "cta")
+            blocks += gpu_tests.refine_blocks_equal_plain(
+                dev, rows, block, "cta")
         except AssertionError as e:
             fail("a DP kernel differs from its plain version on the %s case "
                  "(%s)" % (name, e))
         finally:
             adev._GOTOH_WARP_MAX_COLS = limit
+            adev._REFINE_WARP_MAX_POS = ref_limit
     return blocks
 
 
@@ -1451,7 +1464,7 @@ def phase_device_ops(args, report, res):
         m = measure_dp(
             "gotoh_block (%s)" % kernel, adev.gotoh_block,
             lambda c_, b_, l_: adev.gotoh_block_reference(c, b_, l_, dev),
-            (c_dev, bmat, lbs), mb, cells + 4 * la + 4 * mb * lb + 4 * mb
+            (c_dev, bmat, lbs), mb, 4 * la + 4 * mb * lb + 4 * mb
             + mb * (la + int(lbs_h.max())), GOTOH_OPS_PER_CELL * cells,
             INT32_OPS_PER_S)
         n, acts, busy, prof = profiled_launches(
@@ -1502,13 +1515,15 @@ def phase_device_ops(args, report, res):
                m["launches_per_block"], m["activities_per_block"],
                m["busy_ms_per_block"], json.dumps(m["profile_per_block"])))
 
-    # the refine DP: one pass over the cluster's center-star rows, then
-    # one block of 256 rows
+    # the refine DP: one pass over the cluster's center-star rows (every
+    # block on the warp kernel), then one block of 256 rows under each
+    # refine kernel
     rows = centerstar._merge_rows_vec(
         seqs, center, [m for m in range(len(seqs)) if m != center], got)
-    before = adev.REFINE_DP_LAUNCHES
+    adev.REFINE_DP_LAUNCHES = adev.REFINE_DP_WARP_LAUNCHES = 0
     got_rows = refine.refine_pass(rows, backend="device", device=dev)
-    refine_launches = adev.REFINE_DP_LAUNCHES - before
+    refine_launches = adev.REFINE_DP_LAUNCHES
+    refine_warp = adev.REFINE_DP_WARP_LAUNCHES
     _, ref_ms, ref_peak = timed(lambda: refine.refine_pass(
         rows, backend="device", device=dev))
     t0 = time.perf_counter()
@@ -1518,50 +1533,112 @@ def phase_device_ops(args, report, res):
         fail("refine_pass_device differs from native.refine_realign on %s"
              % name)
     n_blocks = -(-len(rows) // 256)
-    if refine_launches != n_blocks:
-        fail("refine_pass_device made %d refine_dp launches for %d blocks"
-             % (refine_launches, n_blocks))
+    if refine_launches != n_blocks or refine_warp != n_blocks:
+        fail("refine_pass_device made %d refine_dp launches (%d of the warp "
+             "kernel) for %d blocks" % (refine_launches, refine_warp,
+                                        n_blocks))
     res_chars, res_codes, lens, f6, occ, n_cols = refine.device_pass_inputs(
         rows)
     blk = adev.refine_block_inputs(res_codes, lens, f6, occ, slice(0, 256),
                                    device=dev)
     mr, lmax = blk[0].shape
     rcells = n_cols * int((lens[:256].astype(np.int64) + 1).sum())
-    rk = measure_dp(
-        "refine_block", adev.refine_block,
-        lambda *a: adev.refine_block_reference(*a, dev), blk, mr,
-        rcells + 8 * mr * lmax + 8 * mr + 4 * n_cols * mr * 6
-        + 3 * 4 * n_cols * mr + 8 * mr * n_cols,
-        REFINE_OPS_PER_CELL * rcells, FP32_OPS_PER_S)
-    n, acts, busy, prof = profiled_launches(
-        lambda: refine.refine_pass(rows[:256], backend="device", device=dev),
-        "refine_dp_kernel")
-    if n != 1:
-        fail("one refine block made %d refine_dp launches" % n)
-    rk.update(native_ms=ref_native_ms / n_blocks, launches_per_block=n,
-              activities_per_block=acts, busy_ms_per_block=busy,
-              profile_per_block=prof, pass_ms_per_block=ref_ms / n_blocks,
-              peak_mib=ref_peak, pass_launches=refine_launches,
+    # both refine kernels on the block: the warp kernel (the one the
+    # block's width takes), then the CTA kernel forced by the dispatch
+    # limit, then both timed again in the other order
+    ref_limits = {"refine_dp_warp_kernel": adev._REFINE_WARP_MAX_POS,
+                  "refine_dp_kernel": 0}
+    if adev.refine_kernel_plan(lmax)[0] != "refine_dp_warp":
+        fail("phase 10's refine block (lmax %d) is too wide for the warp "
+             "kernel" % lmax)
+    rptxas = {e["kernel"]: e for e in report["ptxas"].get("refine_dp", [])}
+    spilled = {k: e["spill_stores"] + e["spill_loads"]
+               for k, e in rptxas.items()
+               if k.startswith("refine_dp_warp_kernel<")}
+    if len(spilled) != len(adev._WARP_KS) or any(spilled.values()):
+        fail("ptxas spilled in refine_dp_warp_kernel (bytes by K): %s"
+             % spilled)
+
+    def ref_forced(kernel, fn):
+        saved = adev._REFINE_WARP_MAX_POS
+        adev._REFINE_WARP_MAX_POS = ref_limits[kernel]
+        try:
+            return fn()
+        finally:
+            adev._REFINE_WARP_MAX_POS = saved
+
+    def one_refine(kernel):
+        # the whole cluster's pass on this kernel against native
+        if refine.refine_pass(rows, backend="device", device=dev) \
+                != nat_rows:
+            fail("refine_pass_device (%s) differs from native.refine_realign "
+                 "on %s" % (kernel, name))
+        m = measure_dp(
+            "refine_block (%s)" % kernel, adev.refine_block,
+            lambda *a: adev.refine_block_reference(*a, dev), blk, mr,
+            8 * mr * lmax + 8 * mr + 4 * n_cols * mr * 6
+            + 3 * 4 * n_cols * mr + 8 * mr * n_cols,
+            REFINE_OPS_PER_CELL * rcells
+            + REFINE_OPS_PER_COLUMN * n_cols * mr, FP32_OPS_PER_S)
+        _, call_ms, peak = timed(lambda: adev.refine_block(*blk))
+        n, acts, busy, prof = profiled_launches(
+            lambda: refine.refine_pass(rows[:256], backend="device",
+                                       device=dev), kernel)
+        other = sum(v[1] for k, v in prof.items()
+                    if "refine_dp" in k and kernel not in k)
+        if n != 1 or other:
+            fail("one refine block made %d %s launches and %d of the other "
+                 "refine kernel" % (n, kernel, other))
+        name_k = kernel
+        if kernel == "refine_dp_warp_kernel":
+            name_k += "<%d>" % adev.refine_kernel_plan(lmax)[1]
+        pt = rptxas.get(name_k, {})
+        m.update(kernel=name_k, launches_per_block=n,
+                 activities_per_block=acts, busy_ms_per_block=busy,
+                 profile_per_block=prof, call_ms=call_ms, peak_mib=peak,
+                 registers=pt.get("registers"),
+                 spill_bytes=pt.get("spill_stores", 0)
+                 + pt.get("spill_loads", 0) if pt else None)
+        return m
+    refine_k = {k: ref_forced(k, lambda: one_refine(k)) for k in ref_limits}
+    for k in reversed(list(ref_limits)):
+        refine_k[k]["ms_again"] = ref_forced(k, lambda: cuda_ms(
+            lambda: adev.refine_block(*blk), 10))
+    rk = dict(refine_k["refine_dp_warp_kernel"],
+              native_ms=ref_native_ms / n_blocks,
+              pass_ms_per_block=ref_ms / n_blocks, pass_peak_mib=ref_peak,
+              pass_launches=refine_launches, pass_warp_launches=refine_warp,
               M=len(rows), C=n_cols, blocks=n_blocks, lmax=lmax,
-              cells=rcells,
-              moved_rows=sum(a != b for a, b in zip(got_rows, rows)))
+              cells=rcells, warp_spill_bytes=spilled,
+              moved_rows=sum(a != b for a, b in zip(got_rows, rows)),
+              cta=refine_k["refine_dp_kernel"])
     out["refine_dp"] = rk
     say("phase 10 refine_pass_device: M=%d C=%d, %d blocks of 256 == native "
-        "(%d rows moved) in %d refine_dp launches; one block of %d rows "
-        "(lmax %d): refine_block == its plain version (max_abs_err %d); "
-        "kernel %.4f ms (trace %.1f%% of its cycles, %.4f ms), plain %.1f "
-        "ms, native %.1f ms a block; bound %.4f ms (%s, %.1f%%); the pass "
-        "%.1f ms a block, peak %.1f MiB; torch.profiler, full depth: %s "
-        "refine_dp launch(es) of %s CUDA activities, %s device ms: %s"
+        "(%d rows moved) in %d refine_dp launches (%d of "
+        "refine_dp_warp_kernel), and again == native on the CTA kernel "
+        "forced; the pass %.1f ms a block, peak %.1f MiB, native %.1f ms a "
+        "block; one block of %d rows (lmax %d), ptxas spill bytes of "
+        "refine_dp_warp_kernel by K %s:"
         % (len(rows), n_cols, n_blocks, rk["moved_rows"], refine_launches,
-           mr, lmax, rk["max_abs_err"], rk["ms"], 100 * rk["trace_share"],
-           rk["trace_ms"], rk["plain_ms"], rk["native_ms"], rk["bound_ms"],
-           rk["bound_by"], 100 * rk["bound_ms"] / rk["ms"],
-           rk["pass_ms_per_block"], ref_peak, n, acts, busy,
-           json.dumps(prof)))
+           refine_warp, rk["pass_ms_per_block"], ref_peak, rk["native_ms"],
+           mr, lmax, json.dumps(spilled)))
+    for k, m in refine_k.items():
+        say("  %s: refine_block == its plain version (max_abs_err %d); "
+            "kernel %.4f ms, again %.4f ms (trace %.1f%% of its cycles, "
+            "%.4f ms), plain %.1f ms, bound %.4f ms (%s, %.1f%%); ptxas %s "
+            "registers, %s B spilled; the call %.1f ms, peak %.1f MiB; "
+            "torch.profiler, full depth: %s launch(es) of %s CUDA "
+            "activities, %s device ms: %s"
+            % (m["kernel"], m["max_abs_err"], m["ms"], m["ms_again"],
+               100 * m["trace_share"], m["trace_ms"], m["plain_ms"],
+               m["bound_ms"], m["bound_by"], 100 * m["bound_ms"] / m["ms"],
+               m["registers"], m["spill_bytes"], m["call_ms"], m["peak_mib"],
+               m["launches_per_block"], m["activities_per_block"],
+               m["busy_ms_per_block"], json.dumps(m["profile_per_block"])))
     blocks = dp_grid_equal(dev)
-    say("phase 10 tie grid: gotoh_block (both kernels) and refine_block == "
-        "their plain versions on the card on %d blocks (homopolymers, "
+    say("phase 10 tie grid: gotoh_block and refine_block (both kernels of "
+        "each) == their plain versions on the card on %d blocks "
+        "(homopolymers, "
         "tandem repeats, "
         "members equal to the center, codes 4 and up, empty members, a "
         "one-base center, one member, 33 members in blocks of 32)" % blocks)
@@ -2511,6 +2588,21 @@ def dp_entry(m, name, source, replaces, main_path, by_path):
                 launches_by_path=by_path, trace_share=m["trace_share"])
 
 
+def cuda_kernels(m, by_path, warp):
+    """The ``cuda_kernels`` of a DP's entry: its warp kernel (measurements
+    ``m``, launches ``warp`` by path) and its CTA kernel (``m["cta"]``, the
+    rest of ``by_path``), each with its times on phase 10's block."""
+    out = []
+    for k, paths in ((m, warp), (m["cta"], {p: by_path[p] - warp[p]
+                                            for p in by_path})):
+        out.append({"kernel": k["kernel"], "launches_by_path": paths,
+                    **{key: k[key] for key in (
+                        "ms", "ms_again", "plain_ms", "bound_ms",
+                        "trace_share", "registers", "spill_bytes",
+                        "peak_mib")}})
+    return out
+
+
 def gotoh_entry(report):
     """The Gotoh DP's entry of the kernels line: the numbers of the warp
     kernel, which serves the main path's blocks, and under
@@ -2521,17 +2613,24 @@ def gotoh_entry(report):
                "cluster": g["cluster_launches"]}
     warp = {"run": run["gotoh_dp_warp_launches"],
             "cluster": g["cluster_warp_launches"]}
-    kernels = []
-    for m, paths in ((g, warp), (g["cta"], {k: by_path[k] - warp[k]
-                                            for k in by_path})):
-        kernels.append({"kernel": m["kernel"], "launches_by_path": paths,
-                        **{k: m[k] for k in (
-                            "ms", "ms_again", "plain_ms", "bound_ms",
-                            "trace_share", "registers", "spill_bytes",
-                            "peak_mib")}})
     return dict(dp_entry(g, "gotoh_dp", "gotoh_dp.cu",
                          "multiprime_tpu/align/device.py:38", "run",
-                         by_path), cuda_kernels=kernels)
+                         by_path), cuda_kernels=cuda_kernels(g, by_path, warp))
+
+
+def refine_entry(report):
+    """The refine DP's entry of the kernels line, as ``gotoh_entry``: the
+    warp kernel's numbers (it serves refine_pass_device's blocks) and both
+    CUDA kernels of csrc/refine_dp.cu under ``cuda_kernels``."""
+    r, run = report["refine_dp"], report["device_run"]
+    by_path = {"run": run["refine_dp_launches"],
+               "refine_pass_device": r["pass_launches"]}
+    warp = {"run": run["refine_dp_warp_launches"],
+            "refine_pass_device": r["pass_warp_launches"]}
+    return dict(dp_entry(r, "refine_dp", "refine_dp.cu",
+                         "multiprime_tpu/align/device.py:122",
+                         "refine_pass_device", by_path),
+                cuda_kernels=cuda_kernels(r, by_path, warp))
 
 
 def main():
@@ -2611,11 +2710,7 @@ def main():
                      "hit_window_bitmap.cu",
                      "multiprime_tpu/ops/mismatch_scan.py:315"),
         gotoh_entry(report),
-        dp_entry(report["refine_dp"], "refine_dp", "refine_dp.cu",
-                 "multiprime_tpu/align/device.py:122", "refine_pass_device",
-                 {"run": report["device_run"]["refine_dp_launches"],
-                  "refine_pass_device": report["refine_dp"][
-                      "pass_launches"]})]}
+        refine_entry(report)]}
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
     if args.report:

@@ -23,9 +23,16 @@ scores, same tie-breaking.
   folded into ``torch.cummax`` like the NumPy prefix max, and a trace loop
   of the same kind.
 * ``refine_pass_device`` runs ``refine_block`` a member block:
-  ``csrc/refine_dp.cu`` for CUDA tensors; for CPU tensors its plain version
-  ``refine_block_reference``, a loop over MSA columns on ``[M, lmax+1]``
-  float32 lanes with the profile lookup as a ``torch.gather`` (exact).
+  ``csrc/refine_dp.cu`` for CUDA tensors, one of its two kernels chosen by
+  the block's width (``refine_kernel_plan``):
+  ``refine_dp_warp_kernel`` (one warp a member, the column in registers,
+  the profile staged 32 columns ahead, the trace walked in tiles) while
+  lmax + 1 <= ``_REFINE_WARP_MAX_POS`` (1280), ``refine_dp_kernel`` (one
+  CTA a member) past it and for a block with a positive gap term; both are counted in ``REFINE_DP_LAUNCHES``, the
+  warp kernel also in ``REFINE_DP_WARP_LAUNCHES``.  For CPU tensors its
+  plain version ``refine_block_reference``, a loop over MSA columns on
+  ``[M, lmax+1]`` float32 lanes with the profile lookup as a
+  ``torch.gather`` (exact).
   The host pre-scales every multiply, so each device step (kernel and
   plain version alike) is one IEEE add, max or compare and the card
   rounds as NumPy does.
@@ -48,10 +55,11 @@ from .centerstar import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
 # launches of each CUDA kernel in this process (never of its plain
 # version): a run reads them to show that its path went through the kernels.
 # GOTOH_DP_LAUNCHES counts both Gotoh kernels, GOTOH_DP_WARP_LAUNCHES the
-# warp kernel's share of them
+# warp kernel's share of them, and the same for the refine kernels
 GOTOH_DP_LAUNCHES = 0
 GOTOH_DP_WARP_LAUNCHES = 0
 REFINE_DP_LAUNCHES = 0
+REFINE_DP_WARP_LAUNCHES = 0
 
 _NEG = -1 << 28
 _NEGF = float(np.float32(-1e30))
@@ -65,12 +73,14 @@ _OP_CHARS = np.array(["M", "D", "I", ""], dtype=object)
 _DP_THREADS = 256
 _DP_SMEM_BYTES = 160 * 1024
 
-# the Gotoh warp kernel's columns a lane (its instantiations in
-# csrc/gotoh_dp.cu; at 48 and more the row no longer fits the registers and
-# spills) and the widest block it takes, lb + 1 columns; wider blocks take
-# the CTA kernel (a test lowers the limit to force that)
-_GOTOH_WARP_KS = (8, 16, 24, 32, 40)
-_GOTOH_WARP_MAX_COLS = 32 * _GOTOH_WARP_KS[-1]
+# the warp kernels' columns (slots) a lane, their instantiations in
+# csrc/gotoh_dp.cu and csrc/refine_dp.cu (at 48 and more the Gotoh row no
+# longer fits the registers and spills), and the widest block each takes:
+# lb + 1 columns, lmax + 1 residue positions; wider blocks take the CTA
+# kernel (the tests lower a limit to force that)
+_WARP_KS = (8, 16, 24, 32, 40)
+_GOTOH_WARP_MAX_COLS = 32 * _WARP_KS[-1]
+_REFINE_WARP_MAX_POS = 32 * _WARP_KS[-1]
 
 
 def _round_up(x, mult):
@@ -181,16 +191,23 @@ def gotoh_block_reference(c, bmat, lbs, dev):
     return ops.T
 
 
+def _kernel_plan(n, limit, name):
+    """(launcher, its size argument, pointer scratch pitch) of a DP block
+    of ``n`` cells a row: while n <= ``limit``, (name + "_warp", K, 32 *
+    K), K the smallest of ``_WARP_KS`` with 32 * K >= n; past it (name,
+    ``_DP_THREADS``, n)."""
+    if n <= limit:
+        k = next(k for k in _WARP_KS if 32 * k >= n)
+        return name + "_warp", k, 32 * k
+    return name, _DP_THREADS, n
+
+
 def gotoh_kernel_plan(lb):
     """The Gotoh kernel of a block of member width ``lb``, by shape only:
-    (launcher, its size argument, pointer scratch pitch).  While lb + 1 <=
-    ``_GOTOH_WARP_MAX_COLS``: ("gotoh_dp_warp", K, 32 * K), K the smallest
-    of ``_GOTOH_WARP_KS`` with 32 * K >= lb + 1 columns; past it
-    ("gotoh_dp", ``_DP_THREADS``, lb + 1)."""
-    if lb + 1 <= _GOTOH_WARP_MAX_COLS:
-        k = next(k for k in _GOTOH_WARP_KS if 32 * k >= lb + 1)
-        return "gotoh_dp_warp", k, 32 * k
-    return "gotoh_dp", _DP_THREADS, lb + 1
+    the warp kernel ("gotoh_dp_warp") while lb + 1 <=
+    ``_GOTOH_WARP_MAX_COLS``, past it the CTA kernel ("gotoh_dp");
+    ``_kernel_plan`` gives the sizes."""
+    return _kernel_plan(lb + 1, _GOTOH_WARP_MAX_COLS, "gotoh_dp")
 
 
 def gotoh_block(c, bmat, lbs, *, clocks=None):
@@ -317,6 +334,14 @@ def refine_block_reference(res_codes, lens, s4, go_c, ge_c, occ2, dev):
     = 4*f6, go_c/ge_c/occ2 [C, M] = GAP_OPEN*occ, GAP_EXT*occ, 2*occ (all
     float32, rounded on the host) -> int64 [M, C] placed columns (-1 = no
     placement), last residue first."""
+    ptr, best_j = refine_columns_reference(res_codes, lens, s4, go_c, ge_c,
+                                           occ2, dev)
+    return refine_trace_reference(ptr, lens, best_j)
+
+
+def refine_columns_reference(res_codes, lens, s4, go_c, ge_c, occ2, dev):
+    """The column DP of ``refine_block_reference`` -> (uint8 pointer bytes
+    [C, M, lmax + 1], skip | gcont << 1; int64 best end column [M])."""
     c, m = go_c.shape
     lmax = res_codes.shape[1]
     iar = torch.arange(lmax + 1, device=dev)
@@ -345,10 +370,17 @@ def refine_block_reference(res_codes, lens, s4, go_c, ge_c, occ2, dev):
         upd = v_end > best_v
         best_v = torch.where(upd, v_end, best_v)
         best_j = torch.where(upd, jc + 1, best_j)
+    return ptr, best_j
 
+
+def refine_trace_reference(ptr, lens, best_j):
+    """The trace of ``refine_block_reference`` over its pointer bytes ``ptr``
+    [C, M, lmax + 1] from (lens, best_j) -> int64 [M, C] placed columns."""
+    c, m, width = ptr.shape
+    dev = ptr.device
     flat = ptr.reshape(-1)
-    base = torch.arange(m, dtype=torch.int64, device=dev) * (lmax + 1)
-    col_stride = m * (lmax + 1)
+    base = torch.arange(m, dtype=torch.int64, device=dev) * width
+    col_stride = m * width
     i, j = lens.clone(), best_j
     skip = torch.zeros((m,), dtype=torch.bool, device=dev)
     cols = torch.empty((c, m), dtype=torch.int64, device=dev)
@@ -364,6 +396,18 @@ def refine_block_reference(res_codes, lens, s4, go_c, ge_c, occ2, dev):
     return cols.T
 
 
+def refine_kernel_plan(lmax, positive_gaps=False):
+    """The refine kernel of a block of member width ``lmax``: the warp
+    kernel ("refine_dp_warp") while lmax + 1 <= ``_REFINE_WARP_MAX_POS``,
+    past it the CTA kernel ("refine_dp"); ``_kernel_plan`` gives the
+    sizes.  A block with a positive gap term (``positive_gaps``; GAP_OPEN
+    * occ and GAP_EXT * occ never are) takes the CTA kernel at any width:
+    the warp kernel's position 0 holds V = 0 with no select only while its
+    G <= 0."""
+    return _kernel_plan(lmax + 1, -1 if positive_gaps
+                        else _REFINE_WARP_MAX_POS, "refine_dp")
+
+
 def refine_block(res_codes, lens, s4, go_c, ge_c, occ2, *, clocks=None):
     """Column DP + trace of one member block: residue codes ``res_codes``
     int64 [M, lmax] (0..5), ``lens`` int64 [M]; ``s4`` float32 [C, M, 6],
@@ -371,12 +415,15 @@ def refine_block(res_codes, lens, s4, go_c, ge_c, occ2, *, clocks=None):
     ``refine_block_reference``) -> int64 [M, C] placed columns (-1 = no
     placement), last residue first.
 
-    CUDA tensors launch the CUDA kernel ``csrc/refine_dp.cu`` (or raise):
-    one CTA a member runs every column and the trace, one launch a block.
-    ``clocks`` (int64 [M, 3], optional) receives each CTA's clock64 at its
-    start and before and after its trace.  CPU tensors take the plain
-    version."""
-    global REFINE_DP_LAUNCHES
+    CUDA tensors launch a CUDA kernel of ``csrc/refine_dp.cu`` (or raise),
+    the one ``refine_kernel_plan`` names for the block's width and the
+    sign of its gap terms: one warp (blocks up to ``_REFINE_WARP_MAX_POS``
+    positions whose ``go_c``, ``ge_c`` <= 0, as ``refine_block_inputs``
+    makes them) or one CTA a member runs every column and the trace, one
+    launch a block.  ``clocks`` (int64 [M, 3],
+    optional) receives each member's clock64 at its start and before and
+    after its trace.  CPU tensors take the plain version."""
+    global REFINE_DP_LAUNCHES, REFINE_DP_WARP_LAUNCHES
     dev = res_codes.device
     if dev.type == "cpu":
         return refine_block_reference(res_codes, lens, s4, go_c, ge_c, occ2,
@@ -402,21 +449,30 @@ def refine_block(res_codes, lens, s4, go_c, ge_c, occ2, *, clocks=None):
     cols = torch.empty((m, c), dtype=torch.int64, device=dev)
     if cols.numel() == 0:
         return cols
-    # the ranges the kernel indexes by
-    stats = _ranges(lens, res_codes) if lmax else _ranges(lens) + [0, 0]
+    # the ranges the kernels index by and the gap terms' maxima, one sync
+    zero = lens.new_zeros(())
+    stats = torch.stack([x.double() for x in (
+        *torch.aminmax(lens),
+        *(torch.aminmax(res_codes) if lmax else (zero, zero)),
+        go_c.max(), ge_c.max())]).tolist()
     if stats[0] < 0 or stats[1] > lmax or stats[2] < 0 or stats[3] > 5:
         raise ValueError("refine_block: lens must lie in 0..%d and codes in "
-                         "0..5, got %d..%d and %d..%d" % (lmax, *stats))
-    ptr = torch.empty(m * c * (lmax + 1), dtype=torch.uint8, device=dev)
-    state, region = _row_state(m, lmax + 1, 9, dev)
+                         "0..5, got %d..%d and %d..%d" % (lmax, *stats[:4]))
+    name, size, pitch = refine_kernel_plan(lmax, max(stats[4:]) > 0)
+    ptr = torch.empty(m * c * pitch, dtype=torch.uint8, device=dev)
+    args = (res_codes.data_ptr(), lens.data_ptr(), m, lmax, s4.data_ptr(),
+            go_c.data_ptr(), ge_c.data_ptr(), occ2.data_ptr(), c,
+            ptr.data_ptr(), cols.data_ptr())
+    if name == "refine_dp":
+        # the CTA kernel's row state: shared memory or a global scratch
+        state, region = _row_state(m, lmax + 1, 9, dev)
+        args += (_ptr_or_null(state), region)
     with torch.cuda.device(dev):
-        _launch(lib, "refine_dp", res_codes.data_ptr(), lens.data_ptr(), m,
-                lmax, s4.data_ptr(), go_c.data_ptr(), ge_c.data_ptr(),
-                occ2.data_ptr(), c, ptr.data_ptr(), cols.data_ptr(),
-                _ptr_or_null(state), region, _DP_THREADS,
-                _ptr_or_null(clocks),
+        _launch(lib, name, *args, size, _ptr_or_null(clocks),
                 torch.cuda.current_stream(dev).cuda_stream)
     REFINE_DP_LAUNCHES += 1
+    if name == "refine_dp_warp":
+        REFINE_DP_WARP_LAUNCHES += 1
     return cols
 
 

@@ -79,6 +79,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dp_words.cuh"
+
 namespace {
 
 constexpr int kMatch = 2;
@@ -245,24 +247,6 @@ __global__ void gotoh_dp_kernel(const int32_t* __restrict__ c, int la,
   if (clocks != nullptr) clocks[m * 3 + 1] = clock64();
   trace_member(pmem, ld, la, lb_m, out, steps);
   if (clocks != nullptr) clocks[m * 3 + 2] = clock64();
-}
-
-// One lane's packed pointer words (4 bytes each, K / 4 of them) stored at
-// dst, as 16-byte stores where K % 16 == 0, else 8-byte ones (dst is
-// aligned to 8 * (K / 8) bytes).
-template <int K>
-__device__ __forceinline__ void store_words(uint8_t* dst,
-                                            const uint32_t (&w)[K / 4]) {
-  if constexpr (K % 16 == 0) {
-    uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-    for (int q = 0; q < K / 16; ++q)
-      d[q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-  } else {
-    uint2* d = reinterpret_cast<uint2*>(dst);
-#pragma unroll
-    for (int q = 0; q < K / 8; ++q) d[q] = make_uint2(w[2 * q], w[2 * q + 1]);
-  }
 }
 
 template <int K>

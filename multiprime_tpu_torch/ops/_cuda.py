@@ -124,10 +124,13 @@ _LAUNCHERS = {
         "gotoh_dp_warp": (_PTR, _I64, _PTR, _PTR, _I64, _I64, _PTR, _PTR,
                           _I64, _INT, _PTR, _PTR)},
     # res_codes, lens, M, lmax, s4, go_c, ge_c, occ2, C, pointers, cols,
-    # row scratch, region bytes, threads, clocks, stream
-    "refine_dp": {"refine_dp": (_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR,
-                                _PTR, _I64, _PTR, _PTR, _PTR, _I64, _INT,
-                                _PTR, _PTR)},
+    # then row scratch, region bytes, threads (the CTA kernel) or positions
+    # a lane (the warp kernel), then clocks, stream
+    "refine_dp": {
+        "refine_dp": (_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
+                      _PTR, _PTR, _PTR, _I64, _INT, _PTR, _PTR),
+        "refine_dp_warp": (_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR, _PTR,
+                           _I64, _PTR, _PTR, _INT, _PTR, _PTR)},
 }
 
 

@@ -220,7 +220,8 @@ def _dp_launches():
     from ..align import device as adev
     return {"gotoh_dp": adev.GOTOH_DP_LAUNCHES,
             "gotoh_dp_warp": adev.GOTOH_DP_WARP_LAUNCHES,
-            "refine_dp": adev.REFINE_DP_LAUNCHES}
+            "refine_dp": adev.REFINE_DP_LAUNCHES,
+            "refine_dp_warp": adev.REFINE_DP_WARP_LAUNCHES}
 
 
 class Pipeline:
@@ -234,7 +235,7 @@ class Pipeline:
         # launches of the device DP kernels in the cluster stages, summed
         # over the workers
         self.dp_launches = {"gotoh_dp": 0, "gotoh_dp_warp": 0,
-                            "refine_dp": 0}
+                            "refine_dp": 0, "refine_dp_warp": 0}
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
                                         cfg.virus_name + ".fa")
@@ -420,6 +421,7 @@ class Pipeline:
         info["gotoh_dp_launches"] = self.dp_launches["gotoh_dp"]
         info["gotoh_dp_warp_launches"] = self.dp_launches["gotoh_dp_warp"]
         info["refine_dp_launches"] = self.dp_launches["refine_dp"]
+        info["refine_dp_warp_launches"] = self.dp_launches["refine_dp_warp"]
         return info
 
     def _seq_format(self, out):

@@ -249,3 +249,147 @@ def test_gotoh_kernel_plan_follows_the_limit(monkeypatch):
     monkeypatch.setattr(tdev, "_GOTOH_WARP_MAX_COLS", 256)
     assert tdev.gotoh_kernel_plan(255) == ("gotoh_dp_warp", 8, 256)
     assert tdev.gotoh_kernel_plan(256) == ("gotoh_dp", 256, 257)
+
+
+@pytest.mark.parametrize("lmax", [0, 1, 30, 31, 255, 256, 511, 767, 1023,
+                                  1278, 1279, 1280, 5000])
+def test_refine_kernel_plan_by_width(lmax):
+    """The refine dispatch by the block's width alone: the warp kernel with
+    the smallest K of 8, 16, ..., 40 positions a lane such that 32K >= lmax
+    + 1 (and a 32K pitch) up to 1280 positions, the CTA kernel (256
+    threads, pitch lmax + 1) past them and, at every width, for a block
+    with a positive gap term; each plan names a launcher of the refine
+    library with the size argument in its place."""
+    from multiprime_tpu_torch.ops import _cuda
+    cta = ("refine_dp", 256, lmax + 1)
+    if lmax + 1 <= 1280:
+        k = -(-(lmax + 1) // 256) * 8
+        assert 32 * k >= lmax + 1 and (k == 8 or 32 * (k - 8) < lmax + 1)
+        assert tdev.refine_kernel_plan(lmax) == ("refine_dp_warp", k, 32 * k)
+    else:
+        assert tdev.refine_kernel_plan(lmax) == cta
+    assert tdev.refine_kernel_plan(lmax, positive_gaps=True) == cta
+    for plan in (tdev.refine_kernel_plan(lmax), cta):
+        argtypes = _cuda._LAUNCHERS["refine_dp"][plan[0]]
+        assert argtypes[-3] is _cuda._INT     # threads or positions a lane
+
+
+def test_refine_kernel_plan_follows_the_limit(monkeypatch):
+    """The limit the GPU tests and the smoke check lower to force the CTA
+    kernel: at 0 every width takes it, at 256 only blocks of up to 256
+    positions keep the warp kernel."""
+    monkeypatch.setattr(tdev, "_REFINE_WARP_MAX_POS", 0)
+    assert tdev.refine_kernel_plan(0) == ("refine_dp", 256, 1)
+    assert tdev.refine_kernel_plan(924) == ("refine_dp", 256, 925)
+    monkeypatch.setattr(tdev, "_REFINE_WARP_MAX_POS", 256)
+    assert tdev.refine_kernel_plan(255) == ("refine_dp_warp", 8, 256)
+    assert tdev.refine_kernel_plan(256) == ("refine_dp", 256, 257)
+
+
+def _trace_walk(ptr, lens, best_j):
+    """refine_trace_reference's walk, one member at a time in NumPy ->
+    (placed columns [M, C], per member the (column, position) each step
+    read and the (i, j) it started from)."""
+    c, m, _ = ptr.shape
+    cols = np.full((m, c), -1, np.int64)
+    reads = []
+    for k in range(m):
+        i, j, skip, steps = int(lens[k]), int(best_j[k]), False, []
+        for s in range(c):
+            if i == 0:
+                break
+            col = max(j, 1) - 1
+            p = int(ptr[col, k, i])
+            steps.append((i, j, col, i))
+            take = j > i and (skip or p & 1 == 1)
+            if not take:
+                cols[k, s] = j - 1
+                i -= 1
+            skip = take and p & 2 == 2
+            j -= 1
+        reads.append(steps)
+    return cols, reads
+
+
+def _window(f):
+    """The trace tile row of csrc/refine_dp.cu's warp kernel that ends at
+    slot f: from the 16-byte word holding slot max(f - 63, 0), the words
+    that start at or below f (five at most) -> (first slot, bytes)."""
+    base = max(f - 63, 0) & ~15
+    return base, 16 * sum(base + 16 * w <= f for w in range(5))
+
+
+def _seeded_trace_inputs(seed, c, lmax, m):
+    """Random pointer bytes [C, M, lmax + 1], lengths with 0, 1, 31, 32, 33
+    and lmax among them, and end columns with 0, 1 and some below the
+    length (j <= i, where the trace places into column -1 and below)."""
+    rng = np.random.default_rng(seed)
+    ptr = rng.integers(0, 4, size=(c, m, lmax + 1)).astype(np.uint8)
+    lens = rng.integers(0, lmax + 1, size=m)
+    lens[:6] = np.minimum([0, 1, 31, 32, 33, lmax], lmax)
+    best_j = rng.integers(0, c + 1, size=m)
+    best_j[:4] = [0, 1, min(c, 1), c]
+    best_j[6:9] = np.clip(lens[6:9] - rng.integers(0, 40, 3), 0, c)
+    return ptr, lens.astype(np.int64), best_j.astype(np.int64)
+
+
+def _tie_grid_trace_inputs(case):
+    """The column DP's pointer bytes and end columns of a tie-grid case's
+    first refine block (the plain version, on the CPU)."""
+    c, members, block = dp_case(case)
+    rows = dp_case_rows(c, members)
+    res_chars, res_codes, lens, f6, occ, _ = trefine.device_pass_inputs(rows)
+    blk = tdev.refine_block_inputs(res_codes, lens, f6, occ,
+                                   slice(0, block), device="cpu")
+    ptr, best_j = tdev.refine_columns_reference(*blk, torch.device("cpu"))
+    return ptr.numpy(), blk[1].numpy(), best_j.numpy()
+
+
+TRACE_CASES = [("tie", case) for case in DP_CASES] + [
+    ("seeded", (seed, c, lmax)) for seed, c, lmax in
+    ((1, 1, 40), (2, 7, 40), (3, 45, 30), (4, 100, 90), (5, 300, 260))]
+
+
+@pytest.mark.parametrize("kind,case", TRACE_CASES)
+def test_refine_trace_tile_holds_every_read(kind, case):
+    """The warp kernel's trace tiles: on the tie grid's refine blocks and on
+    seeded pointer tensors (j <= 1 and i < 32 included), every pointer
+    byte that refine_block_reference's trace reads lies in the tile the
+    kernel walks it from.  Slot f = i + off holds position i (off = K - 1
+    - len % K); a tile covers 32 steps from (f_n, j_n), and lane q's row
+    holds column max(j - q, 1) - 1 (j = j_0 for the first tile, the tile
+    before's j - 32 after it) over the window that ends at the slot the
+    tile before started from (f_0 for the first), loaded while that tile
+    was walked; the read must be lane q's column, inside its 80-byte row
+    and inside the member's 32K-byte row.  The NumPy walk is held to
+    refine_trace_reference."""
+    if kind == "tie":
+        ptr, lens, best_j = _tie_grid_trace_inputs(case)
+    else:
+        ptr, lens, best_j = _seeded_trace_inputs(*case, m=12)
+    cols, reads = _trace_walk(ptr, lens, best_j)
+    want = tdev.refine_trace_reference(torch.from_numpy(ptr),
+                                       torch.from_numpy(lens),
+                                       torch.from_numpy(best_j))
+    assert np.array_equal(cols, want.numpy())
+    name, k, pitch = tdev.refine_kernel_plan(ptr.shape[2] - 1)
+    assert name == "refine_dp_warp"
+    seen = {"j<=1": 0, "i<32": 0}
+    for member, steps in enumerate(reads):
+        off = k - 1 - int(lens[member]) % k
+        f_prev = j_lanes = None
+        for t0 in range(0, len(steps), 32):
+            i, j = steps[t0][:2]
+            f_prev = i + off if f_prev is None else f_prev
+            j_lanes = j if j_lanes is None else j_lanes - 32
+            base, loaded = _window(f_prev)
+            assert loaded <= 80 and base + loaded <= pitch
+            for q, (_, jq, col, pos) in enumerate(steps[t0:t0 + 32]):
+                assert col == max(j_lanes - q, 1) - 1
+                assert base <= pos + off < base + loaded
+                seen["j<=1"] += jq <= 1
+                seen["i<32"] += pos < 32
+            f_prev = i + off
+    assert seen["i<32"] > 0
+    if kind == "seeded":
+        assert seen["j<=1"] > 0

@@ -105,3 +105,5 @@ def test_run_pipeline_device_stages_equal_jax_host(tmp_path, nproc):
     assert backends["align_served"] == {"device": n_clusters}
     # the plain versions served on the CPU: no DP kernel launched
     assert backends["gotoh_dp_launches"] == backends["refine_dp_launches"] == 0
+    assert backends["gotoh_dp_warp_launches"] == 0
+    assert backends["refine_dp_warp_launches"] == 0

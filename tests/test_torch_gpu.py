@@ -438,25 +438,44 @@ def gotoh_blocks_equal_plain(dev, c, members, block, gotoh="warp"):
     return -(-len(members) // block)
 
 
-def dp_blocks_equal_plain(dev, c, members, block, rows, gotoh="warp"):
-    """Each Gotoh and refine block of a case: the kernel on ``dev`` equals
-    its plain version on ``dev``, one launch a block (the Gotoh blocks on
-    the kernel named by ``gotoh``) -> blocks checked."""
+def refine_block_equal_plain(dev, blk, refine="warp", what="refine block"):
+    """One refine block's inputs ``blk``: the kernel on ``dev`` equals its
+    plain version on ``dev``, one launch, of the kernel named by ``refine``
+    ("warp": refine_dp_warp_kernel, "cta": refine_dp_kernel)."""
     from multiprime_tpu_torch.align import device as adev
-    from multiprime_tpu_torch.align import refine
-    gotoh_blocks_equal_plain(dev, c, members, block, gotoh)
-    res_chars, res_codes, lens, f6, occ, _ = refine.device_pass_inputs(rows)
+    before = adev.REFINE_DP_LAUNCHES
+    before_warp = adev.REFINE_DP_WARP_LAUNCHES
+    got = adev.refine_block(*blk)
+    assert adev.REFINE_DP_LAUNCHES == before + 1
+    assert adev.REFINE_DP_WARP_LAUNCHES == before_warp + (refine == "warp")
+    want = adev.refine_block_reference(*blk, dev)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want), \
+        "%s (%s kernel)" % (what, refine)
+
+
+def refine_blocks_equal_plain(dev, rows, block, refine="warp"):
+    """Each refine block of a pass over ``rows``: the kernel named by
+    ``refine`` equals the plain version -> blocks checked."""
+    from multiprime_tpu_torch.align import device as adev
+    from multiprime_tpu_torch.align import refine as rmod
+    res_chars, res_codes, lens, f6, occ, _ = rmod.device_pass_inputs(rows)
     for lo in range(0, len(rows), block):
         blk = adev.refine_block_inputs(res_codes, lens, f6, occ,
                                        slice(lo, lo + block), device=dev)
-        before = adev.REFINE_DP_LAUNCHES
-        got = adev.refine_block(*blk)
-        assert adev.REFINE_DP_LAUNCHES == before + 1
-        want = adev.refine_block_reference(*blk, dev)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape and torch.equal(got, want), \
-            "refine block at %d" % lo
-    return -(-len(members) // block) - (-len(rows) // block)
+        refine_block_equal_plain(dev, blk, refine, "refine block at %d" % lo)
+    return -(-len(rows) // block)
+
+
+def dp_blocks_equal_plain(dev, c, members, block, rows, gotoh="warp",
+                          refine="warp"):
+    """Each Gotoh and refine block of a case: the kernel on ``dev`` equals
+    its plain version on ``dev``, one launch a block (the Gotoh and refine
+    blocks on the kernels named by ``gotoh`` and ``refine``) -> blocks
+    checked."""
+    gotoh_blocks_equal_plain(dev, c, members, block, gotoh)
+    return -(-len(members) // block) + refine_blocks_equal_plain(
+        dev, rows, block, refine)
 
 
 @pytest.mark.parametrize("case", DP_CASES)
@@ -465,6 +484,18 @@ def test_dp_kernels_equal_plain_on_tie_grid(cuda, case):
     on the card, element for element, on the tie-heavy cases."""
     c, members, block = dp_case(case)
     dp_blocks_equal_plain(cuda, c, members, block, dp_case_rows(c, members))
+
+
+@pytest.mark.parametrize("case", DP_CASES)
+def test_refine_cta_kernel_equal_plain_on_tie_grid(cuda, case, monkeypatch):
+    """The tie-heavy cases with the refine dispatch forced to the CTA kernel
+    (refine_dp_kernel, the one for blocks too wide for a warp), against
+    the plain version; test_dp_kernels_equal_plain_on_tie_grid takes the
+    warp kernel on the same blocks."""
+    from multiprime_tpu_torch.align import device as adev
+    monkeypatch.setattr(adev, "_REFINE_WARP_MAX_POS", 0)
+    c, members, block = dp_case(case)
+    refine_blocks_equal_plain(cuda, dp_case_rows(c, members), block, "cta")
 
 
 @pytest.mark.parametrize("case", DP_CASES)
@@ -526,7 +557,84 @@ def test_dp_kernels_long_member_equal_plain(cuda, state, monkeypatch):
     seqs = ["".join("ACGT"[x] for x in s) for s in [c, *members]]
     _, rows = centerstar.center_star_msa(
         [str(i) for i in range(4)], seqs, backend="device", device=cuda)
-    dp_blocks_equal_plain(cuda, c, members, 2, rows, gotoh="cta")
+    dp_blocks_equal_plain(cuda, c, members, 2, rows, gotoh="cta",
+                          refine="cta")
+
+
+def test_refine_warp_kernel_long_member_equal_plain(cuda):
+    """The refine warp kernel's widest members: rows of up to 1,279
+    residues (K = 40 positions a lane) in an MSA of about 1,300 columns,
+    members with substitutions, indels and a tandem copy; the CTA kernel
+    takes the 5,000-base rows of the test above."""
+    from multiprime_tpu_torch.align import centerstar, refine
+    from multiprime_tpu_torch.align import device as adev
+    rng = np.random.default_rng(89)
+    c = _dp_codes(rng, 1250)
+    b = c.copy()
+    b[rng.random(1250) < 0.05] = 1
+    b = np.insert(np.delete(b, rng.integers(0, 1250, size=12)),
+                  rng.integers(0, 1200, size=30), 3)
+    members = [b, _dp_codes(rng, 1200), np.tile(c[:100], 12)[:1279],
+               c[40:1000].copy()]
+    seqs = ["".join("ACGT"[x] for x in s) for s in [c, *members]]
+    _, rows = centerstar.center_star_msa(
+        [str(i) for i in range(len(seqs))], seqs, backend="device",
+        device=cuda)
+    lmax = refine.device_pass_inputs(rows)[1].shape[1]
+    assert 1248 < lmax + 1 <= 1280
+    assert adev.refine_kernel_plan(lmax)[:2] == ("refine_dp_warp", 40)
+    refine_blocks_equal_plain(cuda, rows, 3, "warp")
+
+
+def _refine_inputs(rng, dev, lens, lmax, n_cols):
+    """A seeded refine block: residue codes 0..5 [M, lmax], the given
+    lengths, and a profile of n_cols columns whose frequencies and
+    occupancies are multiples of 1/8 (so that many cells tie)."""
+    from multiprime_tpu_torch.align import device as adev
+    m = len(lens)
+    res = rng.integers(0, 6, size=(m, max(lmax, 0))).astype(np.int64)
+    f6 = (rng.integers(0, 9, size=(m, n_cols, 6)) / 8).astype(np.float32)
+    occ = (rng.integers(0, 9, size=(m, n_cols)) / 8).astype(np.float32)
+    return adev.refine_block_inputs(res, np.asarray(lens, np.int64), f6, occ,
+                                    slice(0, m), device=dev)
+
+
+@pytest.mark.parametrize("cols", WARP_EDGE_COLS)
+def test_refine_kernels_at_position_boundaries(cuda, cols):
+    """Blocks whose lmax + 1 sits at each K boundary of the refine warp
+    kernel and one past its limit (1280 positions), where the CTA kernel
+    takes over; members that end in lane 0, on a lane's last or first
+    position, at the block's width, and an empty one: equal to the plain
+    version, over a profile of lmax + 37 columns (not a multiple of 32)."""
+    from multiprime_tpu_torch.align import device as adev
+    rng = np.random.default_rng(cols)
+    k = -(-cols // 256) * 8
+    lmax = cols - 1
+    lens = sorted({n for n in (0, 5, k - 1, k, 2 * k - 1, 2 * k, lmax - 1,
+                               lmax) if 0 <= n <= lmax})
+    refine = "warp" if cols <= 1280 else "cta"
+    assert adev.refine_kernel_plan(lmax)[0] == \
+        {"warp": "refine_dp_warp", "cta": "refine_dp"}[refine]
+    blk = _refine_inputs(rng, cuda, lens, lmax, lmax + 37)
+    refine_block_equal_plain(cuda, blk, refine, "lmax + 1 = %d" % cols)
+
+
+@pytest.mark.parametrize("n_cols", [1, 7, 31, 32, 33, 45, 100])
+@pytest.mark.parametrize("refine", ["warp", "cta"])
+def test_refine_kernels_short_profiles(cuda, n_cols, refine, monkeypatch):
+    """C = 1, C < 32, C at and past one chunk and not a multiple of 32:
+    the warp kernel's staged profile ends inside its first or a later
+    chunk; members longer than C (no end column beats -1e30, so the trace
+    starts from column 0) and an empty one; both kernels equal the plain
+    version."""
+    from multiprime_tpu_torch.align import device as adev
+    if refine == "cta":
+        monkeypatch.setattr(adev, "_REFINE_WARP_MAX_POS", 0)
+    rng = np.random.default_rng(n_cols)
+    lmax = 70
+    lens = [0, 1, min(n_cols, lmax), min(n_cols - 1, lmax), 33, lmax]
+    blk = _refine_inputs(rng, cuda, lens, lmax, n_cols)
+    refine_block_equal_plain(cuda, blk, refine, "C = %d" % n_cols)
 
 
 def test_dp_wrappers_refuse_bad_inputs(cuda):
@@ -566,6 +674,34 @@ def test_dp_wrappers_refuse_bad_inputs(cuda):
         adev.refine_block(codes, lens + 1, s4, occ, occ, occ)
     with pytest.raises(ValueError, match="codes"):
         adev.refine_block(codes + 6, lens, s4, occ, occ, occ)
+
+
+def test_refine_positive_gap_terms_take_cta_kernel(cuda):
+    """A positive go_c or ge_c (never GAP_OPEN * occ or GAP_EXT * occ): the
+    block takes the CTA kernel (the warp kernel's position 0 needs G <= 0)
+    and equals the plain version; the block without it keeps the warp
+    kernel.  refine_pass_device with a positive gap open or extension
+    equals its plain version on the CPU."""
+    from multiprime_tpu_torch.align import device as adev
+    from multiprime_tpu_torch.align import refine as rmod
+    rng = np.random.default_rng(97)
+    blk = _refine_inputs(rng, cuda, [0, 3, 40], 40, 50)
+    refine_block_equal_plain(cuda, blk, "warp", "gap terms <= 0")
+    for at in (3, 4):
+        bad = list(blk)
+        bad[at] = bad[at].clone()
+        bad[at][7, 1] = 0.5
+        refine_block_equal_plain(cuda, bad, "cta", "positive gap term")
+    c, members, block = dp_case("homopolymer")
+    args = rmod.device_pass_inputs(dp_case_rows(c, members))
+    for go, ge in ((1.0, -1.0), (-4.0, 0.5)):
+        before = adev.REFINE_DP_WARP_LAUNCHES
+        got = adev.refine_pass_device(*args, go=go, ge=ge,
+                                      member_block=block, device=cuda)
+        assert adev.REFINE_DP_WARP_LAUNCHES == before
+        assert got == adev.refine_pass_device(*args, go=go, ge=ge,
+                                              member_block=block,
+                                              device="cpu")
 
 
 _FORK_AFTER_PROBE = r"""
