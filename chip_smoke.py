@@ -11,7 +11,8 @@ the final line):
 
 1. card and build: the card's name and power limit, then nvcc builds every
    kernel in multiprime_tpu_torch/csrc from the checkout's sources, and
-   each compiled kernel's registers, spills and static shared memory;
+   each compiled kernel's registers, spills and static shared memory (the
+   three of design_stage_a.cu must be there);
 2. the hit-code kernel against its plain PyTorch version, exact int8
    equality, on an edge-case grid (plen 8-63 with K = 4 * plen off the
    32-byte k-step, P unpadded from 1 to 745, mm up to plen + 1, rows
@@ -41,12 +42,20 @@ the final line):
    and the device Gotoh (align_backend: centerstar-device), into phase 4's
    results path: every output file byte-identical to phase 4's (but
    pipeline_metrics.json and logs), Stage A and the align DP served by the
-   card, the Gotoh kernel launched once for each of the run's Gotoh
-   blocks (the warp kernel for every block no wider than its limit); both
-   runs' stage seconds;
+   card, the Stage-A windows kernel launched once for each of the run's
+   Stage-A blocks, the Gotoh kernel once for each of its Gotoh blocks (the
+   warp kernel for every block no wider than its limit); both runs' stage
+   seconds;
 10. the device ops on the largest cluster of that run, each equal to its
    counterpart and timed: design_stats_blocks on the card vs the CPU (and
-   the cluster's design with host vs device Stage A);
+   the cluster's design with host vs device Stage A, the three Stage-A
+   kernels of csrc/design_stage_a.cu launched once a call and once a
+   block); those kernels against their plain versions on the card on
+   every block of the cluster and on an edge grid (gap runs longer than
+   plen, all-gap rows, N-heavy windows, N = 1, plen 8-40, sums past 2**31
+   and 2**63, a plen too long for the shared sums), each kernel timed on
+   one 512-window block beside the plain torch ops, the bound and the
+   block's launches (torch.profiler);
    align_ops_batch_device vs native.gotoh_ops_batch and
    refine_pass_device vs native.refine_realign on its members with seeded
    indels; the Gotoh and refine DP kernels (csrc/gotoh_dp.cu,
@@ -77,7 +86,8 @@ the final line):
    same path, every file byte-identical;
 14. the mesh on one card (a 2 x 2 Mesh of cuda:0): design_stats_blocks_
    sharded on phase 10's cluster equal block for block to
-   design_stats_blocks, coverage_counts_sharded equal to an unsharded sum
+   design_stats_blocks (the windows kernel once a shard and block, the
+   Viterbi kernel once a column and block), coverage_counts_sharded equal to an unsharded sum
    of match_counts, scan_hits under use_mesh on phase 5's inputs equal
    tuple for tuple to the unsharded device scan, and `run` in process
    under the mesh with --stage-a device on a cut corpus (2 families x 1000
@@ -87,10 +97,12 @@ the final line):
    phase 14's unprofiled run, a trace written, and the share of the run
    during which a CUDA kernel ran;
 16. the crossover: the constants of utils/link.py fitted on this card, and
-   the side "auto" picks for phases 4, 5 and 11's scans and the 21k design
-   stage beside the measured time of both sides;
-17. the kernels line: all five kernels; the two DP kernels carry the native
-   DP's ms a block beside their plain version's.
+   the side "auto" picks for phases 4, 5 and 11's scans, the 21k design
+   stage and each cluster of the design sample beside the measured time of
+   both sides;
+17. the kernels line: all six kernel sources; the two DP kernels carry the
+   native DP's ms a block beside their plain version's, design Stage A the
+   host Stage A's design wall.
 
 Every phase that drives the card's path holds its scans to the device
 (MPTPU_FORCE_BACKEND=device, or an explicit backend): the crossover may
@@ -289,6 +301,11 @@ def phase_build(args, report):
                     entry["spill_stores"], entry["spill_loads"],
                     entry["smem"]))
             report["ptxas"].setdefault(name, []).append(entry)
+    stage_a = sorted(e["kernel"] for e in report["ptxas"].get(
+        "design_stage_a", []))
+    if stage_a != ["stage_a_rows_kernel", "stage_a_viterbi_kernel",
+                   "stage_a_windows_kernel"]:
+        fail("ptxas reported %s for design_stage_a.cu" % stage_a)
 
 
 def kernel_label(mangled):
@@ -1109,7 +1126,15 @@ def phase_device_run(args, report, work, res):
     # the Gotoh kernel's launches in the run's cluster workers, against the
     # blocks the run's MSAs call for
     from multiprime_tpu_torch.align import device as adev
-    _, _, gotoh_blocks, wide_blocks = run_blocks(res)
+    _, design_blocks, gotoh_blocks, wide_blocks = run_blocks(res)
+    stage_a_launches = backends.get("stage_a_kernel_launches", 0)
+    say("phase 9 Stage-A windows kernel launches %d for the run's %d "
+        "Stage-A blocks (design stage %s s summed over workers, host run %s "
+        "s)" % (stage_a_launches, design_blocks, dev_t.get("design"),
+                host_t.get("design")))
+    if stage_a_launches != design_blocks:
+        fail("the device run made %d Stage-A kernel launches for %d Stage-A "
+             "blocks" % (stage_a_launches, design_blocks))
     gotoh_launches = backends.get("gotoh_dp_launches", 0)
     warp_launches = backends.get("gotoh_dp_warp_launches", 0)
     say("phase 9 align stage %s s summed over workers (host run %s s); "
@@ -1137,6 +1162,8 @@ def phase_device_run(args, report, work, res):
                                 "refine_dp_launches", 0),
                             "refine_dp_warp_launches": backends.get(
                                 "refine_dp_warp_launches", 0),
+                            "stage_a_kernel_launches": stage_a_launches,
+                            "design_blocks_per_run": design_blocks,
                             "gotoh_blocks_per_run": gotoh_blocks}
     shutil.rmtree(host_res, ignore_errors=True)
 
@@ -1323,6 +1350,140 @@ def profiled_launches(fn, kernel_name):
             sum(v[0] for v in prof.values()), prof)
 
 
+def zero_stage_a_counts(ds):
+    ds.STAGE_A_ROWS_LAUNCHES = ds.STAGE_A_LAUNCHES = 0
+    ds.STAGE_A_VITERBI_LAUNCHES = 0
+
+
+def stage_a_counts(ds):
+    """The launches of the three Stage-A kernels in this process."""
+    return {"rows": ds.STAGE_A_ROWS_LAUNCHES, "windows": ds.STAGE_A_LAUNCHES,
+            "viterbi": ds.STAGE_A_VITERBI_LAUNCHES}
+
+
+def stage_a_grid_equal(dev):
+    """The GPU tests' Stage-A edge grid (gap runs longer than plen, all-gap
+    rows, N-heavy windows, N = 1, plen 8-40, windows at the rows' ends),
+    the wrap cases (sums past 2**31, expansion counts past 2**63, plen 18,
+    31, 32, 40) and a plen too long for the shared sums: the kernels on
+    the card equal to their plain versions on the card and on the CPU ->
+    windows checked."""
+    from tests import test_torch_gpu as gpu_tests
+    cases = [(gpu_tests.stage_a_edge_masks(seed, n, length, plen),
+              np.arange(0, length - plen + 1), plen, variation)
+             for seed, n, length, plen, variation
+             in gpu_tests.STAGE_A_EDGE_CASES]
+    cases += [gpu_tests.stage_a_wrap_masks(plen) + (plen, 1)
+              for plen in (18, 31, 32, 40)]
+    long_rows = np.random.default_rng(5).choice(
+        np.array([0, 1, 2, 4, 8, 5, 15], np.int32), size=(3, 1400))
+    cases.append((long_rows, np.array([0, 7, 99]), 1300, 1300))
+    windows = 0
+    for masks, positions, plen, variation in cases:
+        try:
+            windows += gpu_tests.stage_a_equal_plain(dev, masks, positions,
+                                                     plen, variation)
+        except AssertionError as e:
+            fail("a Stage-A kernel differs from its plain version on the "
+                 "edge grid at plen %d, N %d, L %d (%s)"
+                 % (plen, masks.shape[0], masks.shape[1], e))
+    return len(cases), windows
+
+
+def measure_stage_a(dev, masks, positions, nb, report):
+    """The three Stage-A kernels (csrc/design_stage_a.cu) on the largest
+    cluster: every block equal to the plain version on the card; one
+    512-window block timed (CUDA events, mean of 20 launches after a
+    warm-up, each kernel alone), its launches and each kernel's device
+    time (torch.profiler), the plain version's time and launches, and the
+    block's bound; then the edge grid."""
+    import torch
+    from multiprime_tpu_torch.ops import _cuda
+    from multiprime_tpu_torch.ops import design_scan as ds
+    plen, variation = 18, 1
+    masks_d = torch.from_numpy(np.ascontiguousarray(masks, np.int32)).to(dev)
+    rows = ds.stage_a_rows(masks_d)
+    for b0 in range(0, len(positions), 512):
+        pos = positions[b0:b0 + 512]
+        got = ds._stats(masks_d, pos, plen, variation, True, rows)
+        want = ds.design_stats_full_reference(masks_d, pos, plen=plen,
+                                              variation=variation, device=dev)
+        torch.cuda.synchronize()
+        for key in want:
+            if got[key].dtype != want[key].dtype \
+                    or not torch.equal(got[key], want[key]):
+                fail("the Stage-A kernels' %s differs from the plain "
+                     "version on the card at the block at %d" % (key, b0))
+    lib = _cuda.load("design_stage_a")
+    pos = positions[:512]
+    pos_d = torch.from_numpy(np.asarray(pos, np.int64)).to(dev)
+    stats = ds.window_stats_from_masks(masks_d, pos, plen=plen,
+                                       variation=variation, with_win=True,
+                                       rows=rows)
+    win = stats.pop("win")
+    path = ds.viterbi_batch(stats["freq"], stats["nn"], device=dev)
+    n, length = masks_d.shape
+    w = len(pos)
+    ms = {"rows": cuda_ms(lambda: ds.launch_rows(lib, masks_d, *rows), 20),
+          "windows": cuda_ms(lambda: ds.launch_windows(
+              lib, masks_d, rows, pos_d, stats, win, plen, variation), 20),
+          "viterbi": cuda_ms(lambda: ds.launch_viterbi(
+              lib, stats["freq"], stats["nn"], path), 20)}
+    block_ms = ms["windows"] + ms["viterbi"] + ms["rows"] / nb
+    plain_ms = cuda_ms(lambda: ds.design_stats_full_reference(
+        masks_d, pos, plen=plen, variation=variation, device=dev), 3)
+    kern = kernel_breakdown(lambda: list(ds.design_stats_blocks(
+        masks, pos, plen=plen, variation=variation, device=dev)), top=50)
+    plain_prof = kernel_breakdown(lambda: ds.design_stats_full_reference(
+        masks_d, pos, plen=plen, variation=variation, device=dev), top=500)
+    if kern is None or plain_prof is None:
+        fail("torch.profiler gave no device events for one Stage-A block")
+    by_kernel = {k: v for k, v in kern.items() if "stage_a_" in k}
+    if sorted(v[1] for v in by_kernel.values()) != [1, 1, 1]:
+        fail("one Stage-A block launched %s" % json.dumps(by_kernel))
+    # the bound: the block's mask columns read once, its outputs written
+    # once; the operations its data needs (int32 rate): a cell's mc, gap
+    # compare and count, product, pair product and the two floor
+    # divisions (7), one add a member base and a pair of bases of the
+    # alive rows, and 3 a Viterbi transition (two adds, a compare)
+    win_h = win.cpu().numpy()
+    pop = np.array([bin(i).count("1") for i in range(16)])[win_h & 15]
+    alive = ((win_h == 0).sum(axis=2) <= variation)[:, :, None]
+    adds = int((pop * alive).sum() + (pop[:, :, :-1] * pop[:, :, 1:]
+                                      * alive).sum())
+    cells = n * w * plen
+    n_bytes = (4 * n * (w + plen - 1) + 8 * w + cells
+               + 8 * w * (4 * plen + 16 * (plen - 1)) + 16 * w + 4 * w * plen)
+    ops = 7 * cells + adds + 3 * 16 * w * (plen - 1)
+    b = bound(n_bytes, ops, INT32_OPS_PER_S)
+    grid_cases, grid_windows = stage_a_grid_equal(dev)
+    res = dict(ms=block_ms, kernel_ms=ms, plain_ms=plain_ms,
+               profile_one_block=kern, launches_per_block=sum(
+                   v[1] for v in by_kernel.values()),
+               activities_per_block=sum(v[1] for v in kern.values()),
+               busy_ms_per_block=sum(v[0] for v in kern.values()),
+               plain_launches_per_block=sum(v[1] for v in plain_prof.values()),
+               plain_busy_ms_per_block=sum(v[0] for v in plain_prof.values()),
+               max_abs_err=0, N=n, L=length, W=w, cells=cells, adds=adds,
+               grid_cases=grid_cases, grid_windows=grid_windows,
+               ptxas=report["ptxas"].get("design_stage_a"), **b)
+    say("phase 10 Stage-A kernels (csrc/design_stage_a.cu) == their plain "
+        "versions on the card on all %d blocks of the cluster and on the "
+        "edge grid (%d cases, %d windows, max_abs_err 0); one block (N=%d, "
+        "L=%d, W=%d): rows %.4f ms a call, windows %.4f ms, viterbi %.4f "
+        "ms, %.4f ms a block (the rows' call shared by %d blocks); the "
+        "plain torch ops %.3f ms (%d CUDA activities, %.3f device ms); "
+        "bound %.4f ms (%s, %.1f%%); torch.profiler, one block's call: %d "
+        "kernel launches of %d CUDA activities, %.4f device ms: %s"
+        % (nb, grid_cases, grid_windows, n, length, w, ms["rows"],
+           ms["windows"], ms["viterbi"], block_ms, nb, plain_ms,
+           res["plain_launches_per_block"], res["plain_busy_ms_per_block"],
+           b["bound_ms"], b["bound_by"], 100 * b["bound_ms"] / block_ms,
+           res["launches_per_block"], res["activities_per_block"],
+           res["busy_ms_per_block"], json.dumps(kern)))
+    return res
+
+
 def phase_device_ops(args, report, res):
     """The device torch ops of Stage A and the DP kernels on the largest
     cluster of the device run, each held to its counterpart and timed."""
@@ -1366,31 +1527,41 @@ def phase_device_ops(args, report, res):
                      "the CPU on %s" % (key, name))
     prof = device_profile(lambda: list(design_scan.design_stats_blocks(
         masks, positions[:512], plen=18, variation=1, device=dev)))
+    nb = len(got)
     walls = {}
     for backend in ("host", "device"):
         e = mcdpd.DesignEngine(mcdpd.DesignParams(
             coverage=0.7, min_product=150, coordinate="2,3,-1",
             stage_a=backend, device=dev))
+        zero_stage_a_counts(design_scan)
         t0 = time.perf_counter()
         rows = e.design(ids, chars)
         walls[backend] = time.perf_counter() - t0
+        counts = stage_a_counts(design_scan)
         if backend == "host":
             host_rows = [(r.position, r.primer, r.coverage) for r in rows]
         elif [(r.position, r.primer, r.coverage) for r in rows] != host_rows:
             fail("design rows of %s differ between host and device Stage A"
                  % name)
-    nb = len(got)
+        want = {"rows": 1, "windows": nb, "viterbi": nb} \
+            if backend == "device" else dict.fromkeys(counts, 0)
+        if counts != want:
+            fail("the design of %s with %s Stage A launched the Stage-A "
+                 "kernels %s times, not %s" % (name, backend, counts, want))
     out["design_stats_blocks"] = {
         "N": int(masks.shape[0]), "W": len(positions), "blocks": nb,
         "ms_per_block": dev_ms / nb, "cpu_torch_ms_per_block": cpu_ms / nb,
         "peak_mib": peak, "profile_one_block": prof,
         "design_wall_s": walls}
     say("phase 10 design_stats_blocks on %s (N=%d, W=%d, %d blocks of 512): "
-        "card == CPU; %.3f ms a block on the card, %.1f ms on the CPU; peak "
-        "%.1f MiB; one block: %s (launches, device busy ms); design wall "
-        "host Stage A %.2f s, device Stage A %.2f s, rows equal"
+        "card == CPU; %.3f ms a block on the card (the wall, copies "
+        "included), %.1f ms on the CPU; peak %.1f MiB; one block: %s "
+        "(CUDA activities, device busy ms); design wall host Stage A %.2f "
+        "s, device Stage A %.2f s (the three kernels launched 1, %d, %d "
+        "times), rows equal"
         % (name, masks.shape[0], len(positions), nb, dev_ms / nb,
-           cpu_ms / nb, peak, prof, walls["host"], walls["device"]))
+           cpu_ms / nb, peak, prof, walls["host"], walls["device"], nb, nb))
+    out["stage_a"] = measure_stage_a(dev, masks, positions, nb, report)
 
     # the center-star DP: the run's members (the sampled .tfa) against
     # native, then one block of 512 members of the whole cluster; the
@@ -2117,12 +2288,20 @@ def phase_mesh(args, report, work, res, keys):
     single = list(design_scan.design_stats_blocks(masks, positions,
                                                   device=dev))
     single_s = time.perf_counter() - t0
+    zero_stage_a_counts(design_scan)
     t0 = time.perf_counter()
     sharded = list(pmesh.design_stats_blocks_sharded(mesh, masks, positions))
     sharded_s = time.perf_counter() - t0
+    counts = stage_a_counts(design_scan)
     if len(single) != len(sharded):
         fail("design_stats_blocks_sharded gave %d blocks, unsharded %d"
              % (len(sharded), len(single)))
+    shards, cols = int(mesh.devices.size), mesh.shape["win"]
+    want = {"rows": shards, "windows": shards * len(sharded),
+            "viterbi": cols * len(sharded)}
+    if counts != want:
+        fail("the mesh's Stage A launched the Stage-A kernels %s times, not "
+             "%s" % (counts, want))
     for (pa, a), (pb, b) in zip(single, sharded):
         if not np.array_equal(pa, pb) or sorted(a) != sorted(b) or any(
                 a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
@@ -2131,12 +2310,14 @@ def phase_mesh(args, report, work, res, keys):
                  "design_stats_blocks on %s" % name)
     out["stage_a"] = {"cluster": name, "N": int(masks.shape[0]),
                       "W": len(positions), "blocks": len(single),
-                      "single_s": single_s, "sharded_s": sharded_s}
+                      "single_s": single_s, "sharded_s": sharded_s,
+                      "kernel_launches": counts}
     say("phase 14 mesh %s (%d shards): design_stats_blocks_sharded == "
         "design_stats_blocks on %s (N=%d, W=%d, %d blocks; %.3f s sharded, "
-        "%.3f s unsharded)" % (mesh.spec(), mesh.devices.size, name,
-                               masks.shape[0], len(positions), len(single),
-                               sharded_s, single_s))
+        "%.3f s unsharded); Stage-A kernel launches %s"
+        % (mesh.spec(), mesh.devices.size, name, masks.shape[0],
+           len(positions), len(single), sharded_s, single_s,
+           json.dumps(counts)))
     # coverage counts: 512 targets x phase 5's keys
     _, seqs = vscan.parse_fasta(os.path.join(res, "Total_fa",
                                              "scale21k.format.fa"))
@@ -2212,11 +2393,14 @@ def phase_mesh(args, report, work, res, keys):
         run_launches = ms.HIT_CODES_LAUNCHES
     backends = pipe._backends()
     served = backends["stage_a_served"]
+    stage_a_run = backends["stage_a_kernel_launches"]
     if set(served) != {"device-sharded"} or run_launches <= 0 \
+            or stage_a_run <= 0 \
             or backends.get("scan_backend") != "device-sharded":
         fail("the run under the mesh: Stage A served %s, scan %s, %d "
-             "hit_codes launches" % (served, backends.get("scan_backend"),
-                                     run_launches))
+             "hit_codes launches, %d Stage-A kernel launches"
+             % (served, backends.get("scan_backend"), run_launches,
+                stage_a_run))
     diff = tree_diff(cut_res + "_single", cut_res)
     if diff is not None:
         fail("the run under the mesh wrote %s unlike the run without" % diff)
@@ -2224,13 +2408,15 @@ def phase_mesh(args, report, work, res, keys):
     shutil.rmtree(cut_res)
     out["run"] = {"files": n_files, "mesh_s": mesh_s, "single_s": single_s,
                   "stage_a_served": served,
-                  "hit_codes_launches": run_launches}
+                  "hit_codes_launches": run_launches,
+                  "stage_a_kernel_launches": stage_a_run}
     say("phase 14 run under the mesh (--stage-a device, nproc=%d, the "
         "workers handed the mesh): tree == the run without it (%d files); "
         "%.1f s with the mesh, %.1f s without; Stage A served %s, scan %s, "
-        "hit_codes launches %d" % (kw["nproc"], n_files, mesh_s, single_s,
-                                   json.dumps(served),
-                                   backends["scan_backend"], run_launches))
+        "hit_codes launches %d, Stage-A windows kernel launches %d (one a "
+        "shard and block)" % (kw["nproc"], n_files, mesh_s, single_s,
+                              json.dumps(served), backends["scan_backend"],
+                              run_launches, stage_a_run))
     report["mesh"] = out
 
 
@@ -2540,12 +2726,39 @@ def phase_crossover(args, report, work, res, keys):
     picks["21k design Stage A"] = (
         "device on %d of %d clusters" % (n_dev, len(sizes)), dev_design,
         host_design)
+    # each shape of the sample (its clusters' summed walls: clusters of one
+    # shape differ by more than the two sides do) beside the committed
+    # constants' pick, the card warm as in the sample
+    shapes = {}
+    for n, w, host_s, dev_s in rows:
+        s = shapes.setdefault((n, w), [0, 0.0, 0.0, 0])
+        s[0] += 1
+        s[1] += host_s
+        s[2] += dev_s
+        s[3] += dev_s < host_s
+    linkmod.device_startup_s = lambda **kw: 0.0
+    try:
+        against = []
+        for (n, w), (k, host_s, dev_s, dev_wins) in sorted(shapes.items()):
+            side = mcdpd.resolve_stage_a(n, w, 18)
+            faster = "device" if dev_s < host_s else "host"
+            say("phase 16 design sample N=%d W=%d: %d clusters, host %.4f s, "
+                "device %.4f s (the device faster on %d of them); auto picks "
+                "%s, the faster side in sum %s"
+                % (n, w, k, host_s, dev_s, dev_wins, side, faster))
+            if side != faster:
+                against.append((n, w, k, host_s, dev_s, dev_wins))
+    finally:
+        linkmod.device_startup_s = real_startup
+    say("phase 16 auto picks against the faster side in sum on %d of the "
+        "sample's %d shapes" % (len(against), len(shapes)))
     for what, (side, dev_t, host_t) in picks.items():
         say("phase 16 auto picks %s for the %s: measured device %s s, host "
             "%s s" % (side, what, dev_t, host_t))
     report["crossover"] = {"fit": fit, "link": link,
                            "committed": dict(linkmod.RATES),
                            "picks": picks, "design_sample": rows,
+                           "design_sample_against": against,
                            "design_split": {"host_s": host_design,
                                             "device_s": dev_design,
                                             "cuda_starts_s": starts_s}}
@@ -2633,6 +2846,28 @@ def refine_entry(report):
                 cuda_kernels=cuda_kernels(r, by_path, warp))
 
 
+def stage_a_entry(report):
+    """Design Stage A's entry of the kernels line: the three kernels of
+    csrc/design_stage_a.cu as one, their ms a 512-window block (the rows'
+    call shared by the cluster's blocks) on phase 10's cluster, launches
+    of the windows kernel by path (one a block, and a shard on the mesh),
+    no PyTorch call computes it: the host NumPy Stage A's design wall
+    beside the device one as the yardstick."""
+    s, mesh = report["device_ops"]["stage_a"], report["mesh"]
+    by_path = {"run": report["device_run"]["stage_a_kernel_launches"],
+               "mesh_stage_a": mesh["stage_a"]["kernel_launches"]["windows"],
+               "mesh_run": mesh["run"]["stage_a_kernel_launches"]}
+    return dict(kernel_entry(dict(s, launches=by_path["run"],
+                                  library_ms=None),
+                             "design_stage_a", "design_stage_a.cu",
+                             "multiprime_tpu/ops/design_scan.py:160"),
+                launches_by_path=by_path, kernel_ms=s["kernel_ms"],
+                launches_per_block=s["launches_per_block"],
+                plain_launches_per_block=s["plain_launches_per_block"],
+                design_wall_s=report["device_ops"]["design_stats_blocks"][
+                    "design_wall_s"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2710,7 +2945,8 @@ def main():
                      "hit_window_bitmap.cu",
                      "multiprime_tpu/ops/mismatch_scan.py:315"),
         gotoh_entry(report),
-        refine_entry(report)]}
+        refine_entry(report),
+        stage_a_entry(report)]}
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
     if args.report:

@@ -234,6 +234,7 @@ def gotoh_block(c, bmat, lbs, *, clocks=None):
         raise ValueError("gotoh_block: lbs must be [%d], got %s"
                          % (m, tuple(lbs.shape)))
     _check_clocks("gotoh_block", clocks, m, dev)
+    name, size, pitch = gotoh_kernel_plan(lb)
     from ..ops import _cuda
     lib = _cuda.load("gotoh_dp")
     if dev.type != "cuda":
@@ -247,7 +248,6 @@ def gotoh_block(c, bmat, lbs, *, clocks=None):
     ops = torch.empty((m, steps), dtype=torch.uint8, device=dev)
     if ops.numel() == 0:
         return ops
-    name, size, pitch = gotoh_kernel_plan(lb)
     ptr = torch.empty(m * la * pitch, dtype=torch.uint8, device=dev)
     args = (c.data_ptr(), la, bmat.data_ptr(), lbs.data_ptr(), m, lb,
             ptr.data_ptr(), ops.data_ptr(), steps)

@@ -4,8 +4,9 @@
 Same flags as multiPrime/scripts/multiPrime-core.py:60-102 plus ``--algo``
 to pick the reference generation to reproduce (v16 = the one that
 generated the shipped golden results), ``--stage-a`` to run Stage A as
-batched torch ops, and ``--device {cuda,cpu}`` (default cuda; asking for
-cuda without a GPU is an error, whatever the Stage-A backend).
+the CUDA kernels of ops/design_scan (their plain torch versions on the
+CPU), and ``--device {cuda,cpu}`` (default cuda; asking for cuda without a
+GPU is an error, whatever the Stage-A backend).
 """
 
 import argparse
@@ -34,12 +35,13 @@ def build_parser():
                    help="design engine generation")
     p.add_argument("--stage-a", choices=["host", "device", "auto"],
                    default="host", dest="stage_a",
-                   help="Stage-A backend: batched torch ops on --device, or "
+                   help="Stage-A backend: the CUDA kernels on --device, or "
                         "the bit-exact host path (identical outputs); auto "
                         "takes the device")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device of device Stage A (default cuda; cpu "
-                        "runs the torch ops on the host)")
+                        "runs the kernels' plain torch versions on the "
+                        "host)")
     return p
 
 

@@ -117,7 +117,7 @@ def _run(argv):
     p.add_argument("--stage-a", choices=["host", "device", "auto"],
                    dest="stage_a",
                    help="design Stage-A backend (default: host/config): "
-                        "device runs it as torch ops on --device, auto "
+                        "device runs it as CUDA kernels on --device, auto "
                         "takes the side the measured crossover picks")
     p.add_argument("--cluster-shard", dest="cluster_shard", metavar="i/P",
                    help="run only every P-th cluster of the fan-out "

@@ -187,10 +187,11 @@ class DesignParams:
     hairpin_distance: int = 4      # -a
     nproc: int = 1
     algo: str = "v20"
-    # Stage-A backend: "host" (bit-exact NumPy), "device" (the batched
-    # torch ops of ops/design_scan.design_stats_blocks on ``device``;
-    # freq/NN/Viterbi for a block of windows at once, host Stage B consumes
-    # them), or "auto" (resolve_stage_a).  Outputs are identical either way
+    # Stage-A backend: "host" (bit-exact NumPy), "device" (the CUDA
+    # kernels of ops/design_scan.design_stats_blocks on ``device``, their
+    # plain torch versions on the CPU; freq/NN/Viterbi for a block of
+    # windows at once, host Stage B consumes them), or "auto"
+    # (resolve_stage_a).  Outputs are identical either way
     # (tests/test_torch_design_scan.py).
     stage_a: str = "host"
     # torch device of device Stage A: "cuda" (raises without a GPU) or "cpu"
@@ -201,9 +202,9 @@ def resolve_stage_a(n_seqs, n_windows, plen):
     """The Stage-A backend of "auto": the measured crossover of
     utils/link.py (constants from an H100).  The design call with host
     Stage A runs at a measured rate of window-cells a second; the device
-    call pays its start-up (a CUDA context in a fresh worker), one
-    launch-bound block of torch ops and one sync per 512 windows, the
-    patched windows' copy back, and its own per-cell rate.
+    call pays its start-up (a CUDA context in a fresh worker and the
+    Stage-A kernels' library), one block of kernels and one sync per 512
+    windows, the patched windows' copy back, and its own per-cell rate.
     MPTPU_FORCE_BACKEND overrides; outputs are identical either way
     (tests/test_torch_design_scan.py)."""
     from ..utils import link as linkmod
@@ -211,7 +212,7 @@ def resolve_stage_a(n_seqs, n_windows, plen):
     if forced is not None:
         return forced
     t_host = linkmod.est_host_stagea_s(n_seqs, n_windows, plen)
-    startup = linkmod.device_startup_s(kernels=())
+    startup = linkmod.device_startup_s(kernels=("design_stage_a",))
     if t_host < 0.15 + startup:   # too small to be worth the device's
         return "host"             # start-up
     t_dev = startup + linkmod.est_device_stagea_s(n_seqs, n_windows, plen)
@@ -756,8 +757,9 @@ class DesignEngine:
 
     def _design_device(self, chars, positions, seq_ids, n, threshold,
                        progress=None):
-        """Stage A on ``self.p.device`` (ops/design_scan): patched windows,
-        freq/NN tensors and Viterbi paths for all windows in blocks; Stage B
+        """Stage A on ``self.p.device`` (ops/design_scan: the CUDA kernels
+        of csrc/design_stage_a.cu on a card): patched windows, freq/NN
+        tensors and Viterbi paths for all windows in blocks; Stage B
         consumes them window by window.  Bit-identical to the host path
         (the device integers are exact; tests/test_torch_design_scan.py).
         """

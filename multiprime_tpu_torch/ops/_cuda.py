@@ -131,6 +131,15 @@ _LAUNCHERS = {
                       _PTR, _PTR, _PTR, _I64, _INT, _PTR, _PTR),
         "refine_dp_warp": (_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR, _PTR,
                            _I64, _PTR, _PTR, _INT, _PTR, _PTR)},
+    # design Stage A: masks, before, packed, N, L (the rows); masks,
+    # before, packed, positions, win (or null), freq, nn, cover, gaps, N,
+    # L, W, plen, variation (the windows); freq, nn, path, W, plen (the
+    # Viterbi paths); then the stream
+    "design_stage_a": {
+        "stage_a_rows": (_PTR, _PTR, _PTR, _I64, _I64, _PTR),
+        "stage_a_windows": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                            _PTR, _I64, _I64, _I64, _INT, _I64, _PTR),
+        "stage_a_viterbi": (_PTR, _PTR, _PTR, _I64, _INT, _PTR)},
 }
 
 

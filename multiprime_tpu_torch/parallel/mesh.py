@@ -97,22 +97,24 @@ def _split(n, parts, what):
     return n // parts
 
 
-def _stage_a(mesh, masks_by_row, pos_by_col, plen, variation, with_win):
+def _stage_a(mesh, placed, pos_by_col, plen, variation, with_win):
     """Stage A over the mesh: the windows of column j on the devices of
-    column j, each row's masks on its device; counts summed over 'seq' on
-    the column's first device, Viterbi there.  -> per column, its stats
-    dict (and the patched windows of every row, with_win)."""
+    column j, each row's masks (and their rows, ``design_scan.
+    stage_a_rows``) on its device; each shard's counts from the windows
+    kernel, summed over 'seq' on the column's first device, the Viterbi
+    kernel there.  -> per column, its stats dict (and the patched windows
+    of every row, with_win)."""
     cols = []
     for j in range(mesh.shape["win"]):
         head = mesh.devices[0, j]
         total, wins = None, []
         for i in range(mesh.shape["seq"]):
-            d = mesh.devices[i, j]
-            win = design_scan.patch_windows(masks_by_row[i, j], pos_by_col[j],
-                                            plen, device=d)
-            stats = design_scan.window_stats(win, variation, device=d)
+            masks, rows = placed[i, j]
+            stats = design_scan.window_stats_from_masks(
+                masks, pos_by_col[j], plen=plen, variation=variation,
+                with_win=with_win, rows=rows)
             if with_win:
-                wins.append(win.to(torch.int8))
+                wins.append(stats.pop("win"))
             if total is None:
                 total = {k: v.to(head) for k, v in stats.items()}
             else:
@@ -125,23 +127,27 @@ def _stage_a(mesh, masks_by_row, pos_by_col, plen, variation, with_win):
 
 
 def _place(mesh, masks):
-    """masks split over 'seq', each row's shard on each device of its row:
-    {(i, j): int32 tensor}."""
+    """masks split over 'seq', each row's shard on each device of its row,
+    with its rows on a card: {(i, j): (int32 tensor, rows or None)}."""
     rows = _split(masks.shape[0], mesh.shape["seq"], "N")
     out = np.empty(mesh.devices.shape, dtype=object)
     for i in range(mesh.shape["seq"]):
         part = np.ascontiguousarray(masks[i * rows:(i + 1) * rows],
                                     dtype=np.int32)
         for j in range(mesh.shape["win"]):
-            out[i, j] = torch.from_numpy(part).to(mesh.devices[i, j])
+            t = torch.from_numpy(part).to(mesh.devices[i, j])
+            out[i, j] = (t, None if t.device.type == "cpu"
+                         else design_scan.stage_a_rows(t))
     return out
 
 
 def _columns(mesh, positions):
+    """The window starts of each 'win' column (host arrays: the windows
+    kernel's wrapper checks and uploads them)."""
     cols = _split(len(positions), mesh.shape["win"], "W")
     positions = np.asarray(positions, dtype=np.int64)
-    return [torch.from_numpy(positions[j * cols:(j + 1) * cols]).to(
-        mesh.devices[0, j]) for j in range(mesh.shape["win"])]
+    return [positions[j * cols:(j + 1) * cols]
+            for j in range(mesh.shape["win"])]
 
 
 def design_stats_sharded(mesh, masks, positions, *, plen=18, variation=1):

@@ -215,13 +215,16 @@ class PipelineConfig:
         return cfg
 
 
-def _dp_launches():
-    """{kernel: launches} of the device DP kernels in this process so far."""
+def _kernel_launches():
+    """{kernel: launches} of the device DP and Stage-A kernels in this
+    process so far (Stage A: its windows kernel, one a block)."""
     from ..align import device as adev
+    from ..ops import design_scan
     return {"gotoh_dp": adev.GOTOH_DP_LAUNCHES,
             "gotoh_dp_warp": adev.GOTOH_DP_WARP_LAUNCHES,
             "refine_dp": adev.REFINE_DP_LAUNCHES,
-            "refine_dp_warp": adev.REFINE_DP_WARP_LAUNCHES}
+            "refine_dp_warp": adev.REFINE_DP_WARP_LAUNCHES,
+            "stage_a_kernel": design_scan.STAGE_A_LAUNCHES}
 
 
 class Pipeline:
@@ -232,10 +235,9 @@ class Pipeline:
         # clusters served by each Stage-A and align backend: {"stage_a":
         # {"device": n, ...}, "align": {"native": n, "none": n, ...}}
         self.served = {}
-        # launches of the device DP kernels in the cluster stages, summed
-        # over the workers
-        self.dp_launches = {"gotoh_dp": 0, "gotoh_dp_warp": 0,
-                            "refine_dp": 0, "refine_dp_warp": 0}
+        # launches of the device DP and Stage-A kernels in the cluster
+        # stages, summed over the workers
+        self.kernel_launches = dict.fromkeys(_kernel_launches(), 0)
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
                                         cfg.virus_name + ".fa")
@@ -418,10 +420,8 @@ class Pipeline:
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
         info["hit_codes_launches"] = ms.HIT_CODES_LAUNCHES
-        info["gotoh_dp_launches"] = self.dp_launches["gotoh_dp"]
-        info["gotoh_dp_warp_launches"] = self.dp_launches["gotoh_dp_warp"]
-        info["refine_dp_launches"] = self.dp_launches["refine_dp"]
-        info["refine_dp_warp_launches"] = self.dp_launches["refine_dp_warp"]
+        for key, n in self.kernel_launches.items():
+            info[key + "_launches"] = n
         return info
 
     def _seq_format(self, out):
@@ -676,8 +676,8 @@ class Pipeline:
             for key, served in rep["served"].items():
                 count = self.served.setdefault(key, {})
                 count[served] = count.get(served, 0) + 1
-            for key, n in rep["dp_launches"].items():
-                self.dp_launches[key] += n
+            for key, n in rep["kernel_launches"].items():
+                self.kernel_launches[key] += n
             self.log.extend(rep["log"])
 
     def _clusters_use_torch(self):
@@ -698,7 +698,7 @@ class Pipeline:
         cfg = self.cfg
         rep = {"align_s": 0.0, "design_s": 0.0, "pair_s": 0.0, "log": [],
                "served": {}}
-        launched = _dp_launches()
+        launched = _kernel_launches()
         tfa = self._p("Clusters_fa", name + ".tfa")
         msa_path = self._p("Clusters_msa", name + ".tmsa")
         if not os.path.exists(msa_path):
@@ -725,10 +725,10 @@ class Pipeline:
                 rows = refine.refine_msa(rows, cfg.msa_refine)
             centerstar.write_msa(ids, rows, msa_path)
             rep["align_s"] += time.time() - t0
-        rep["dp_launches"] = {k: n - launched[k]
-                              for k, n in _dp_launches().items()}
         if cfg.design_backend == "wrc":
             self._wrc_cluster(name, msa_path, tfa)
+            rep["kernel_launches"] = {k: n - launched[k]
+                                      for k, n in _kernel_launches().items()}
             return rep
         out = self._p("Clusters_primer", name + ".top.primer.out")
         cand = self._p("Clusters_cprimer",
@@ -804,6 +804,8 @@ class Pipeline:
             # clusters, and letting the caches grow across a 4096-cluster
             # fan-out costs GBs of RSS and a growing gen-2 GC walk
             mcdpd.clear_memo_caches()
+        rep["kernel_launches"] = {k: n - launched[k]
+                                  for k, n in _kernel_launches().items()}
         return rep
 
     def _wrc_cluster(self, name, msa_path, tfa):

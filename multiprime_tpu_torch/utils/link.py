@@ -44,11 +44,12 @@ RATES = {
     # (host of NVIDIA H100 80GB HBM3, 700.00 W; phase 16)
     "host_stagea_cells_per_s": 1.44e7,
     # design call with device Stage A, cells/s beside its blocks
-    # (NVIDIA H100 80GB HBM3, 700.00 W; phase 16)
-    "device_stagea_cells_per_s": 1.02e7,
-    # device Stage A's torch ops of one 512-window block, s
-    # (NVIDIA H100 80GB HBM3, 700.00 W; phase 16)
-    "device_stagea_block_s": 0.00921,
+    # (NVIDIA H100 80GB HBM3, 700.00 W; phase 16, the Stage-A kernels)
+    "device_stagea_cells_per_s": 1.08e7,
+    # device Stage A's kernels of one 512-window block, copies included, s
+    # (NVIDIA H100 80GB HBM3, 700.00 W; phases 10 and 16, the Stage-A
+    # kernels of csrc/design_stage_a.cu)
+    "device_stagea_block_s": 0.00156,
     # a CUDA context's start in a fresh process, s
     # (NVIDIA H100 80GB HBM3, 700.00 W; phase 16)
     "cuda_init_s": 0.552,
@@ -168,7 +169,7 @@ def est_host_stagea_s(n_seqs, n_windows, plen):
 def est_device_stagea_s(n_seqs, n_windows, plen, block=512, link=None):
     """Device Stage-A estimate: shipping the patched window tensor back to
     the host Stage B (n_seqs * n_windows * plen int8 bytes), one sync and
-    one launch-bound block of torch ops per window block, and the rest of
+    one block of the Stage-A kernels per window block, and the rest of
     the design call at its measured per-cell rate."""
     link = link or LINK
     cells = n_seqs * n_windows * plen

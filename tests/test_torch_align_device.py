@@ -189,13 +189,14 @@ def test_tie_heavy_dps_equal_jax(case):
 def test_dp_wrappers_launch_or_raise_off_the_cpu(monkeypatch):
     """On a meta tensor (any non-CPU device) gotoh_block and refine_block
     reach _cuda.load, and never the plain version: without a card there is
-    no fallback."""
+    no fallback.  gotoh_block chooses its kernel before the load: the warp
+    kernel at lb + 1 = 10, the CTA kernel at 1281."""
     from multiprime_tpu_torch.ops import _cuda
 
     class Sentinel(Exception):
         pass
 
-    loaded = []
+    loaded, planned = [], []
 
     def load(name):
         loaded.append(name)
@@ -204,9 +205,16 @@ def test_dp_wrappers_launch_or_raise_off_the_cpu(monkeypatch):
     def plain(*a, **kw):
         raise AssertionError("the plain version ran off the CPU")
 
+    plan = tdev.gotoh_kernel_plan
+
+    def recorded_plan(lb):
+        planned.append(plan(lb)[0])
+        return plan(lb)
+
     monkeypatch.setattr(_cuda, "load", load)
     monkeypatch.setattr(tdev, "gotoh_block_reference", plain)
     monkeypatch.setattr(tdev, "refine_block_reference", plain)
+    monkeypatch.setattr(tdev, "gotoh_kernel_plan", recorded_plan)
     meta = torch.device("meta")
     # blocks on each side of the warp kernel's limit (lb + 1 = 10, 1281)
     for lb in (9, tdev._GOTOH_WARP_MAX_COLS):
@@ -215,6 +223,7 @@ def test_dp_wrappers_launch_or_raise_off_the_cpu(monkeypatch):
                              torch.zeros((3, lb), dtype=torch.int32,
                                          device=meta),
                              torch.zeros(3, dtype=torch.int32, device=meta))
+    assert planned == ["gotoh_dp_warp", "gotoh_dp"]
     f = torch.zeros((5, 3), dtype=torch.float32, device=meta)
     with pytest.raises(Sentinel):
         tdev.refine_block(torch.zeros((3, 4), dtype=torch.int64, device=meta),

@@ -107,3 +107,4 @@ def test_run_pipeline_device_stages_equal_jax_host(tmp_path, nproc):
     assert backends["gotoh_dp_launches"] == backends["refine_dp_launches"] == 0
     assert backends["gotoh_dp_warp_launches"] == 0
     assert backends["refine_dp_warp_launches"] == 0
+    assert backends["stage_a_kernel_launches"] == 0

@@ -264,8 +264,8 @@ def test_dimer_matrices_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the device torch ops of design Stage A and the center-star/refine DPs:
-# the card's results equal the CPU's (integers, op codes, refined rows)
+# the CUDA kernels of design Stage A and the center-star/refine DPs: the
+# card's results equal the plain versions' (integers, op codes, rows)
 # ---------------------------------------------------------------------------
 
 def _stage_a_masks(rng, n, length):
@@ -285,6 +285,181 @@ def _stage_a_masks(rng, n, length):
     return masks
 
 
+# the Stage-A kernels' edge grid (tests/test_torch_design_scan.py holds its
+# NumPy model to JAX on it, chip_smoke.py phase 10 the kernels to their
+# plain versions): seed, N, L, plen, variation
+STAGE_A_EDGE_CASES = [
+    (0, 24, 160, 8, 0), (1, 1, 120, 18, 1), (2, 30, 200, 25, 2),
+    (3, 12, 150, 40, 3), (4, 40, 180, 32, 1), (5, 7, 90, 18, 0)]
+
+
+def stage_a_edge_masks(seed, n, length, plen):
+    """Seeded int32 masks with the windows kernel's edge cases: gap runs
+    longer than plen at the rows' ends and inside them, an all-gap row,
+    rows of a few residues then a long run (fewer residues before a window
+    than its lead), a run of N in some rows, IUPAC codes."""
+    from multiprime_tpu_torch.utils import iupac
+    rng = np.random.default_rng(seed)
+    chars = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, length))]
+    dege = rng.random((n, length)) < 0.04
+    chars[dege] = np.frombuffer(b"RYMKSWHBVD", np.uint8)[
+        rng.integers(0, 10, size=int(dege.sum()))]
+    chars[rng.random((n, length)) < 0.1] = ord("-")
+    masks = iupac.bytes_to_masks(chars).astype(np.int32)
+    if n == 1:
+        masks[0, :plen + 3] = 0
+        masks[0, length // 2:length // 2 + plen + 2] = 0
+        return masks
+    masks[2] = 0                                    # an all-gap row
+    masks[1, -(plen + 5):] = 0
+    masks[0, :plen + 7] = 0
+    masks[3 % n, 3:3 + 2 * plen] = 0               # 3 residues, then a run
+    masks[4 % n, length - 3 - 2 * plen:length - 3] = 0
+    for r in rng.choice(n, size=max(1, n // 4), replace=False):
+        at = int(rng.integers(0, length - 2 * plen))
+        masks[r, at:at + int(rng.integers(plen + 1, 2 * plen))] = 0
+    heavy = rng.choice(n, size=max(1, n // 5), replace=False)
+    at = int(rng.integers(0, length - 6))
+    masks[heavy, at:at + 6] = 15                    # N-heavy windows
+    return masks
+
+
+def stage_a_wrap_masks(plen):
+    """(masks, positions) whose sums pass 2**31 (plen 18), whose all-N
+    windows' 4**32 expansions wrap to 0 (plen 32) and whose three-base
+    windows' 3**40 wraps to a negative int64 (plen 40): 12 rows of
+    three-base codes, 4 of them N across plen columns, 21 windows."""
+    rng = np.random.default_rng(plen)
+    three = np.array([7, 11, 13, 14], np.int32)        # V D B H
+    masks = three[rng.integers(0, 4, size=(12, plen + 20))]
+    masks[8:, 4:4 + plen] = 15
+    masks[0, :3] = 0
+    return masks, np.arange(0, 21)
+
+
+def stage_a_equal_plain(dev, masks, positions, plen, variation):
+    """design_stats_full on the card (the three kernels, one launch each)
+    equal, key for key, dtype and value, to its plain version on the card
+    and on the CPU -> the number of windows."""
+    from multiprime_tpu_torch.ops import design_scan as ds
+    counts = (ds.STAGE_A_ROWS_LAUNCHES, ds.STAGE_A_LAUNCHES,
+              ds.STAGE_A_VITERBI_LAUNCHES)
+    got = ds.design_stats_full(masks, positions, plen=plen,
+                               variation=variation, device=dev)
+    assert (ds.STAGE_A_ROWS_LAUNCHES, ds.STAGE_A_LAUNCHES,
+            ds.STAGE_A_VITERBI_LAUNCHES) == tuple(c + 1 for c in counts)
+    on_card = ds.design_stats_full_reference(masks, positions, plen=plen,
+                                             variation=variation, device=dev)
+    on_cpu = ds.design_stats_full_reference(masks, positions, plen=plen,
+                                            variation=variation)
+    assert list(got) == list(on_cpu)
+    for key in on_cpu:
+        g = got[key].cpu()
+        for want in (on_card[key].cpu(), on_cpu[key]):
+            assert g.dtype == want.dtype and torch.equal(g, want), key
+    return len(positions)
+
+
+@pytest.mark.parametrize("case", STAGE_A_EDGE_CASES)
+def test_stage_a_kernels_equal_plain_on_edge_grid(cuda, case):
+    """Every window of the edge grid: gap runs longer than plen, all-gap
+    rows, fewer residues before a window than its lead run, N-heavy
+    windows, windows at both ends of the rows, N = 1, plen 8-40."""
+    seed, n, length, plen, variation = case
+    stage_a_equal_plain(cuda, stage_a_edge_masks(seed, n, length, plen),
+                        np.arange(0, length - plen + 1), plen, variation)
+
+
+@pytest.mark.parametrize("plen", [18, 31, 32, 40])
+def test_stage_a_kernels_wrap_as_plain(cuda, plen):
+    """Sums past 2**31 and expansion counts that wrap past 2**63: the
+    kernel's unsigned sums and floor divisions equal torch's int64."""
+    masks, positions = stage_a_wrap_masks(plen)
+    stage_a_equal_plain(cuda, masks, positions, plen, 1)
+
+
+def test_stage_a_kernels_long_plen_and_short_blocks(cuda):
+    """A plen too long for the shared sums (they go to the outputs), one
+    window, one member, plen 1, and a block of no windows."""
+    from multiprime_tpu_torch.ops import design_scan as ds
+    rng = np.random.default_rng(5)
+    masks = rng.choice(np.array([0, 1, 2, 4, 8, 5, 15], np.int32),
+                       size=(3, 1400))
+    stage_a_equal_plain(cuda, masks, np.array([0, 7, 99]), 1300, 1300)
+    stage_a_equal_plain(cuda, masks[:1, :30], np.array([12]), 18, 5)
+    stage_a_equal_plain(cuda, masks[:, :30], np.array([0, 29]), 1, 0)
+    out = ds.design_stats_full(masks[:, :30], np.array([], np.int64),
+                               device=cuda)
+    assert tuple(out["freq"].shape) == (0, 18, 4)
+    assert tuple(out["win"].shape) == (3, 0, 18)
+
+
+def test_stage_a_viterbi_kernel_ties(cuda):
+    """Planted ties (equal scores at every step and at the end) take the
+    first maximum, over `from` and at the last position, as the plain
+    version's torch.argmax does; and scores past 2**63 wrap alike."""
+    from multiprime_tpu_torch.ops import design_scan as ds
+    rng = np.random.default_rng(8)
+    freq = rng.integers(0, 3, size=(300, 18, 4))
+    nn = rng.integers(0, 3, size=(300, 17, 4, 4))
+    freq[:8] = 5
+    nn[:8] = 0
+    nn[8:16, :, 1:, :] = nn[8:16, :, :1, :]
+    freq[16:24] = rng.integers(2 ** 61, 2 ** 62, size=(8, 18, 4))
+    before = ds.STAGE_A_VITERBI_LAUNCHES
+    got = ds.viterbi_batch(freq, nn, device=cuda)
+    assert ds.STAGE_A_VITERBI_LAUNCHES == before + 1
+    want = ds.viterbi_batch_reference(freq, nn)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, ds.viterbi_batch_reference(freq, nn, device=cuda))
+    assert (want[:8] == 0).all()
+
+
+def test_stage_a_wrappers_refuse_bad_inputs(cuda):
+    """Masks outside 0..15, windows past the row's end, wrong types and
+    shapes raise before any launch."""
+    from multiprime_tpu_torch.ops import design_scan as ds
+    masks = torch.ones((4, 50), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="0..15"):
+        ds.stage_a_rows(masks * 16)
+    with pytest.raises(ValueError, match="window starts"):
+        ds.window_stats_from_masks(masks, np.array([0, 33]))
+    with pytest.raises(ValueError, match="window starts"):
+        ds.window_stats_from_masks(masks, torch.tensor([-1], device=cuda))
+    with pytest.raises(ValueError, match="int32"):
+        ds.window_stats_from_masks(masks.to(torch.int64), np.array([0]))
+    with pytest.raises(ValueError, match=r"nn \[W, plen - 1, 4, 4\]"):
+        ds.viterbi_batch(torch.zeros((2, 18, 4), dtype=torch.int64,
+                                     device=cuda),
+                         torch.zeros((2, 18, 4, 4), dtype=torch.int64,
+                                     device=cuda), device=cuda)
+
+
+def test_stage_a_sharded_on_a_mesh_of_one_card(cuda):
+    """design_stats_blocks_sharded over a 2 x 2 Mesh of cuda:0 (rows padded
+    with an all-gap row, a short last block) equals design_stats_blocks,
+    every shard through the windows kernel and each column's Viterbi
+    through the Viterbi kernel."""
+    from multiprime_tpu_torch.ops import design_scan as ds
+    from multiprime_tpu_torch.parallel import mesh as pmesh
+    masks = stage_a_edge_masks(2, 31, 300, 18)
+    positions = np.arange(0, 300 - 18 + 1)
+    want = list(ds.design_stats_blocks(masks, positions, block=128,
+                                       device="cpu"))
+    mesh = pmesh.Mesh([["cuda:0"] * 2] * 2)
+    before = (ds.STAGE_A_LAUNCHES, ds.STAGE_A_VITERBI_LAUNCHES)
+    got = list(pmesh.design_stats_blocks_sharded(mesh, masks, positions,
+                                                 block=128))
+    assert len(got) == len(want) == 3
+    assert (ds.STAGE_A_LAUNCHES, ds.STAGE_A_VITERBI_LAUNCHES) == (
+        before[0] + 4 * 3, before[1] + 2 * 3)
+    for (gp, gs), (wp, ws) in zip(got, want):
+        assert np.array_equal(gp, wp) and sorted(gs) == sorted(ws)
+        for key in ws:
+            assert gs[key].dtype == ws[key].dtype, key
+            assert np.array_equal(gs[key], ws[key]), key
+
+
 @pytest.mark.parametrize("plen,variation", [(18, 1), (25, 2)])
 def test_design_stats_blocks_card_equals_cpu(cuda, plen, variation):
     from multiprime_tpu_torch.ops import design_scan
@@ -294,9 +469,11 @@ def test_design_stats_blocks_card_equals_cpu(cuda, plen, variation):
     kw = dict(plen=plen, variation=variation, block=128)
     want = list(design_scan.design_stats_blocks(masks, positions,
                                                 device="cpu", **kw))
+    before = design_scan.STAGE_A_LAUNCHES
     got = list(design_scan.design_stats_blocks(masks, positions,
                                                device=cuda, **kw))
     assert len(got) == len(want) == 3
+    assert design_scan.STAGE_A_LAUNCHES == before + 3
     for (wp, ws), (gp, gs) in zip(want, got):
         assert np.array_equal(wp, gp)
         for key in ws:

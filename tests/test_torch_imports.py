@@ -171,6 +171,10 @@ def _new_entry_points(tmp_path):
         "find_hits_bitmap": lambda: ms.find_hits_bitmap(
             oh, np.array([24, 24]), oh[:1, :8], oh[:1, :8]),
         "design_stats": lambda: design_scan.design_stats(masks, [0, 5]),
+        "design_stats_full": lambda: design_scan.design_stats_full(masks,
+                                                                   [0, 5]),
+        "viterbi_batch": lambda: design_scan.viterbi_batch(
+            np.zeros((2, 18, 4), np.int64), np.zeros((2, 17, 4, 4), np.int64)),
         "design_stats_blocks": lambda: list(
             design_scan.design_stats_blocks(masks, [0, 5])),
         "stage_a_device": lambda: mcdpd.DesignEngine(mcdpd.DesignParams(
@@ -201,6 +205,7 @@ def _new_entry_points(tmp_path):
 @pytest.mark.parametrize("name", ["dimer_hit_matrix",
                                   "dimer_hit_matrix_fused", "match_counts",
                                   "find_hits_bitmap", "design_stats",
+                                  "design_stats_full", "viterbi_batch",
                                   "design_stats_blocks", "stage_a_device",
                                   "align_ops_batch_device",
                                   "center_star_msa_device",
