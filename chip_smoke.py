@@ -10,20 +10,30 @@ Phases (each prints one line or more; any failure exits non-zero before
 the final line):
 
 1. card and build: the card's name and power limit, then nvcc builds every
-   kernel in multiprime_tpu_torch/csrc from the checkout's sources, and
-   each compiled kernel's registers, spills and static shared memory (the
-   three of design_stage_a.cu must be there);
+   kernel in multiprime_tpu_torch/csrc from the checkout's sources (one
+   nvcc a source, all started together), and each compiled kernel's
+   registers, spills and static shared memory (the three of
+   design_stage_a.cu, the count, scan and write kernels of find_hits.cu
+   and dimer_fired.cu's must be there);
 2. the hit-code kernel against its plain PyTorch version, exact int8
    equality, on an edge-case grid (plen 8-63 with K = 4 * plen off the
    32-byte k-step, P unpadded from 1 to 745, mm up to plen + 1, rows
    shorter than a window tile) and at the main path's batch shape and the
    scan cell's, with CUDA-event times of kernel, plain version and a conv1d
    yardstick;
-3. find_hits_batched on the card against find_hits_numpy on the host, and
+3. the find_hits kernels (csrc/find_hits.cu) against their plain version
+   (hit_idx, n_hits, mism equal) on phase 2's edge grid with zero-length
+   padding rows and max_hits below, at and above the hits, and on dense
+   cases: blocks of more than 1,024 hits (whole-row rounds and a row alone
+   in pattern slices), max_hits inside a block, a flat size no multiple of
+   64, rows shorter than plen, term 0 and above plen; then
+   find_hits_batched on the card against find_hits_numpy on the host, and
    a device scan whose hits overflow the first max_hits (the retry);
 4. `run` through the CLI in a subprocess on the seeded 21k-sequence corpus
-   (20 families x 1000 members + 1000 singletons, 900 bp), then the rule-19
-   scan rerun on the host backend: BWT_coverage outputs byte-identical;
+   (20 families x 1000 members + 1000 singletons, 900 bp), its find_hits
+   launches equal to its scan's device batches, then the rule-19 scan
+   rerun on the host backend: BWT_coverage outputs byte-identical; the
+   hit-code and find_hits kernels timed at the run's batch shape;
 5. `scan` through the CLI on the run's aggregated candidate set against
    the 21k targets, device vs host byte-identical; then -m 4 on 4200
    targets on the device, held to the plain version through find_hits;
@@ -34,18 +44,22 @@ the final line):
    5's patterns, equal tuple for tuple to find_hits over the scan's
    batches; the bitmap kernel timed at that shape beside its plain version
    and a conv1d yardstick;
-8. dimer_hit_matrix_fused and dimer_hit_matrix on the unique candidate
-   primers (the first DIMER_PRIMERS of them), equal to each other and to
-   verify_against_host on a seeded sample; the match-count kernel timed at
-   the fused path's first bucket;
+8. dimer_hit_matrix_fused (the dimer_fired kernel of csrc/dimer_fired.cu,
+   one launch a bucket) and dimer_hit_matrix (the match-count kernel) on
+   the unique candidate primers (the first DIMER_PRIMERS of them), equal to
+   each other and to verify_against_host on a seeded sample; dimer_fired
+   against its plain version on the fused path's first bucket and on an
+   edge grid (first hits at the first and the last window, d2 clipped at
+   both ends, padding rows, lp 8-64), both count kernels timed at the
+   first bucket;
 9. `run` again on the same corpus with device Stage A (--stage-a device)
    and the device Gotoh (align_backend: centerstar-device), into phase 4's
    results path: every output file byte-identical to phase 4's (but
    pipeline_metrics.json and logs), Stage A and the align DP served by the
    card, the Stage-A windows kernel launched once for each of the run's
    Stage-A blocks, the Gotoh kernel once for each of its Gotoh blocks (the
-   warp kernel for every block no wider than its limit); both runs' stage
-   seconds;
+   warp kernel for every block no wider than its limit), find_hits once
+   for each device batch of its scan; both runs' stage seconds;
 10. the device ops on the largest cluster of that run, each equal to its
    counterpart and timed: design_stats_blocks on the card vs the CPU (and
    the cluster's design with host vs device Stage A, the three Stage-A
@@ -67,32 +81,37 @@ the final line):
    with CUDA-event times of kernel and plain version, the trace's share
    (the kernels' clock64 counters), the native DP's time, the bound, and
    the launches of one block at full depth (torch.profiler), peak device
-   memory;
+   memory; all of it in a process of its own, which starts no other;
 11. `specificity` through the CLI against a seeded background of about
    64 Mb (15 x 4 Mb and one shorter sequence, so that the scan's last
    batch holds padding rows) holding 200 planted amplicons of phase 5's
    candidate pairs, 30 of them across a multiple of the segment stride:
    on the card and on the host backend (MPTPU_FORCE_BACKEND=host), with
    and without --exhaustive-join, every output byte-identical between the
-   two, at least 150 plants in the exhaustive .out; the hit-code kernel
-   held to its plain version on the scan's last batch (padding rows
-   included) and timed there with the find_hits compaction (16 segments
-   of 65,536 bases x the 18-base keys);
+   two, at least 150 plants in the exhaustive .out, each card run's
+   find_hits launches equal to its scan's device batches, its peak device
+   memory against the prediction; the hit-code kernel and the find_hits
+   kernels held to their plain versions on the scan's last batch (padding
+   rows included, 16 segments of 65,536 bases x the 18-base keys) and
+   timed there beside hit_codes + the torch compaction and a
+   torch.nonzero yardstick, with the bound, the device time by CUDA
+   kernel and each path's peak memory;
 12. `update -f DO` (phase 4's final set as the core; the candidate pairs of
    two family clusters not in the panel, the smallest such candidate sets,
    as the new set; the formatted 21k targets as the reference DB) and
-   `nondimer-filter`, card vs host backend, byte-identical;
+   `nondimer-filter`, card vs host backend, byte-identical, find_hits once
+   a device batch;
 13. `onestep` on the largest family cluster, card vs host backend, into the
-   same path, every file byte-identical;
+   same path, every file byte-identical, find_hits once a device batch;
 14. the mesh on one card (a 2 x 2 Mesh of cuda:0): design_stats_blocks_
    sharded on phase 10's cluster equal block for block to
    design_stats_blocks (the windows kernel once a shard and block, the
    Viterbi kernel once a column and block), coverage_counts_sharded equal to an unsharded sum
    of match_counts, scan_hits under use_mesh on phase 5's inputs equal
-   tuple for tuple to the unsharded device scan, and `run` in process
-   under the mesh with --stage-a device on a cut corpus (2 families x 1000
-   members + 20 singletons) equal byte for byte to the same run without
-   it;
+   tuple for tuple to the unsharded device scan (find_hits once a batch
+   shard), and `run` in process under the mesh with --stage-a device on a
+   cut corpus (2 families x 1000 members + 20 singletons) equal byte for
+   byte to the same run without it;
 15. `run --profile` through the CLI on the cut corpus: the tree equal to
    phase 14's unprofiled run, a trace written, and the share of the run
    during which a CUDA kernel ran;
@@ -100,9 +119,11 @@ the final line):
    the side "auto" picks for phases 4, 5 and 11's scans, the 21k design
    stage and each cluster of the design sample beside the measured time of
    both sides;
-17. the kernels line: all six kernel sources; the two DP kernels carry the
-   native DP's ms a block beside their plain version's, design Stage A the
-   host Stage A's design wall.
+17. the kernels line: all eight kernel sources; the two DP kernels carry
+   the native DP's ms a block beside their plain version's, design Stage A
+   the host Stage A's design wall; find_hits's launches are the `run`'s
+   (its main path), hit_codes's those of the phase 11 call whose codes
+   are held to find_hits's list.
 
 Every phase that drives the card's path holds its scans to the device
 (MPTPU_FORCE_BACKEND=device, or an explicit backend): the crossover may
@@ -301,11 +322,17 @@ def phase_build(args, report):
                     entry["spill_stores"], entry["spill_loads"],
                     entry["smem"]))
             report["ptxas"].setdefault(name, []).append(entry)
-    stage_a = sorted(e["kernel"] for e in report["ptxas"].get(
-        "design_stage_a", []))
-    if stage_a != ["stage_a_rows_kernel", "stage_a_viterbi_kernel",
-                   "stage_a_windows_kernel"]:
-        fail("ptxas reported %s for design_stage_a.cu" % stage_a)
+    want = {"design_stage_a": ["stage_a_rows_kernel",
+                               "stage_a_viterbi_kernel",
+                               "stage_a_windows_kernel"],
+            "find_hits": sorted(["find_hits_scan_kernel"] + [
+                "find_hits_%s_kernel<%d>" % (k, ks)
+                for k in ("count", "write") for ks in range(1, 9)]),
+            "dimer_fired": ["dimer_fired_kernel"]}
+    for name, kernels in want.items():
+        got = sorted(e["kernel"] for e in report["ptxas"].get(name, []))
+        if got != kernels:
+            fail("ptxas reported %s for %s.cu" % (got, name))
 
 
 def kernel_label(mangled):
@@ -460,12 +487,192 @@ def measure_kernel(ms, masks, p1h, s1h, mm, term, label):
     return out
 
 
+def find_hits_equal(ms, dev, masks, lens, p1h, s1h, mm, term, max_hits,
+                    what):
+    """find_hits (the kernels) against find_hits_reference on the card,
+    with int32 and int64 lengths: hit_idx, n_hits and mism equal.
+    -> n_hits."""
+    import torch
+    tm = torch.from_numpy(masks).to(dev)
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    kw = dict(plen=p1h.shape[1], mm=mm, term=term, max_hits=max_hits)
+    for dtype in (torch.int32, torch.int64):
+        tl = torch.from_numpy(lens).to(dev, dtype)
+        got = ms.find_hits(tm, tl, planes, sfx, **kw)
+        want = ms.find_hits_reference(tm, tl, planes, sfx, **kw)
+        torch.cuda.synchronize()
+        if not all(g.dtype == torch.int64 and torch.equal(g, w)
+                   for g, w in zip(got, want)):
+            fail("find_hits differs from its plain version (%s) at plen=%d "
+                 "mm=%d term=%d N=%d L=%d P=%d max_hits=%d lengths %s: "
+                 "n_hits %d vs %d" % (
+                     what, kw["plen"], mm, term, masks.shape[0],
+                     masks.shape[1], p1h.shape[0], max_hits, dtype,
+                     int(got[1]), int(want[1])))
+    return int(want[1])
+
+
+def dense_find_hits_cases(rng):
+    """(name, masks, lens, p1h, s1h, mm, term) of the dense find_hits
+    cases: poly-A rows whose 64-window tiles hold 1,152 hits (past the
+    kernel's 1,024-entry list: rounds of whole rows), rows of 1,504 hits
+    (a row alone, in pattern slices), many short all-hit rows, and a flat
+    size N * O * P that is no multiple of 64 with unpadded P."""
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    lut = np.array(list("ACGT"))
+    out = []
+    for name, seqs, pats, mm, term in (
+            ("poly_a", ["A" * 1000] * 6 + random_seqs(rng, 1, 900, 900),
+             ["A" * 18] + ["A" * k + "C" + "A" * (17 - k)
+                           for k in range(18)], 1, 1),
+            ("row_of_1504", random_seqs(rng, 3, 60, 120),
+             ["".join(rng.choice(lut, size=18)) for _ in range(1500)],
+             18, 0),
+            ("all_hit_rows", random_seqs(rng, 40, 60, 120),
+             ["".join(rng.choice(lut, size=18)) for _ in range(40)], 18,
+             0),
+            ("odd_flat", random_seqs(rng, 3, 60, 101), None, 3, 1)):
+        if pats is None:
+            pats = planted_patterns(rng, seqs, 5, 18)
+            p1h, s1h = pattern_onehots(ms, pats, term)
+            p1h, s1h = p1h[:5], s1h[:5]
+        else:
+            p1h, s1h = pattern_onehots(ms, pats, term)
+        masks, lens = ms.encode_target_masks(seqs)
+        out.append((name, masks, lens, p1h, s1h, mm, term))
+    return out
+
+
+def call_peak_mib(fn):
+    """MiB that one synchronised fn() call allocates above what was
+    allocated before it (the peak of torch's allocator)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def measure_find_hits(ms, masks, lens, p1h, s1h, mm, term, max_hits, label):
+    """The find_hits kernels vs their plain version (exact) on one batch;
+    the hit-code kernel's codes (one call of the entry point ``hit_codes``,
+    counted), masked by the window lengths, through torch.nonzero equal to
+    the kernels' list; then CUDA-event times of the kernels, the plain
+    version, hit_codes + find_hits_from_codes (the path before the
+    kernels), the compaction alone and one torch.nonzero of the masked
+    codes (the library yardstick, never used by the port), beside the
+    bound; each path's peak MiB above its inputs."""
+    import torch
+    dev = torch.device(DEVICE)
+    plen = p1h.shape[1]
+    tm = torch.from_numpy(masks).to(dev)
+    tl = torch.from_numpy(lens).to(dev)
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    kw = dict(plen=plen, mm=mm, term=term, max_hits=max_hits)
+    ms.FIND_HITS_LAUNCHES = 0
+    got = ms.find_hits(tm, tl, planes, sfx, **kw)
+    launches = ms.FIND_HITS_LAUNCHES
+    want = ms.find_hits_reference(tm, tl, planes, sfx, **kw)
+    torch.cuda.synchronize()
+    max_err = max(int((g - w).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+    if max_err != 0 or launches != 1:
+        fail("find_hits differs from its plain version at the %s (%d "
+             "launches)" % (label, launches))
+    n_hits = int(got[1])
+    del want
+    ms.HIT_CODES_LAUNCHES = 0
+    codes = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term)
+    codes_launches = ms.HIT_CODES_LAUNCHES
+    n, n_out, p_all = codes.shape
+    inside = (torch.arange(n_out, device=dev)[None, :] + plen) \
+        <= tl.long()[:, None]
+    masked = torch.where(inside[:, :, None], codes, 0).reshape(-1)
+    flat = torch.nonzero(masked)[:, 0]
+    k = min(n_hits, max_hits)
+    if len(flat) != n_hits or not torch.equal(flat[:k], got[0][:k]) \
+            or not torch.equal(masked[flat[:k]].long() - 1, got[2][:k]):
+        fail("the hit_codes kernel's masked codes differ from the find_hits "
+             "kernels' list at the %s" % label)
+    kernel_ms = cuda_ms(lambda: ms.find_hits(tm, tl, planes, sfx, **kw), 20)
+    plain_ms = cuda_ms(lambda: ms.find_hits_reference(tm, tl, planes, sfx,
+                                                      **kw), 3)
+    codes_path_ms = cuda_ms(lambda: ms.find_hits_from_codes(
+        ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term), tl,
+        plen=plen, max_hits=max_hits), 10)
+    compaction_ms = cuda_ms(lambda: ms.find_hits_from_codes(
+        codes, tl, plen=plen, max_hits=max_hits), 10)
+    library_ms = cuda_ms(lambda: torch.nonzero(masked), 10)
+    del codes, masked, flat
+    peak_mib = call_peak_mib(lambda: ms.find_hits(tm, tl, planes, sfx, **kw))
+    codes_peak_mib = call_peak_mib(lambda: ms.find_hits_from_codes(
+        ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term), tl,
+        plen=plen, max_hits=max_hits))
+    # the bytes: masks, lengths and both plane sets in, the two lists and
+    # n_hits out; the operations: the int8 window product of the windows
+    # inside their rows (padding rows need none), 2 * 4 * plen a pair
+    windows = int(torch.clamp(tl.long() - plen + 1, 0, n_out).sum())
+    in_bytes = masks.nbytes + lens.nbytes + 2 * planes.numel() * 8
+    out_bytes = 2 * max_hits * 8 + 8
+    out = {"shape": {"N": n, "L": masks.shape[1], "O": n_out, "P": p_all,
+                     "plen": plen, "mm": mm, "term": term,
+                     "max_hits": max_hits, "windows_inside": windows},
+           "hits": n_hits, "max_abs_err": max_err, "launches": launches,
+           "hit_codes_launches": codes_launches, "ms": kernel_ms,
+           "plain_ms": plain_ms, "codes_path_ms": codes_path_ms,
+           "compaction_ms": compaction_ms, "library_ms": library_ms,
+           "peak_mib": peak_mib,
+           "codes_path_peak_mib": codes_peak_mib,
+           **bound(in_bytes + out_bytes, 2 * windows * p_all * 4 * plen,
+                   INT8_OPS_PER_S)}
+    say("%s find_hits N=%d L=%d P=%d plen=%d mm=%d term=%d max_hits=%d: "
+        "equal, %d hits, == hit_codes' masked nonzero; kernels_ms=%.4f "
+        "plain_ms=%.4f hit_codes+compaction_ms=%.4f (compaction alone "
+        "%.4f) library_ms=%.4f (torch.nonzero) bound_ms=%.4f (%s, %.1f%%); "
+        "peak MiB %.1f (hit_codes+compaction %.1f)"
+        % (label, n, masks.shape[1], p_all, plen, mm, term, max_hits,
+           n_hits, kernel_ms, plain_ms, codes_path_ms, compaction_ms,
+           library_ms, out["bound_ms"], out["bound_by"],
+           100 * out["bound_ms"] / kernel_ms, peak_mib, codes_peak_mib))
+    return out
+
+
 def phase_find_hits(args, report):
     import torch
     from multiprime_tpu_torch.ops import mismatch_scan as ms
     from multiprime_tpu_torch.validate import scan as vscan
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(args.seed + 1)
+    # the kernels against their plain version: phase 2's edge grid with a
+    # zero-length padding row after the first and three after the last,
+    # max_hits cycling below, far above, at 1 and at 0 hits
+    cases = hits = 0
+    for i, (plen, mm, term, n_pat, lo, hi) in enumerate(edge_grid(rng)):
+        seqs = random_seqs(rng, int(rng.integers(1, 40)), lo, hi,
+                           letters="ACGTacgtNRY-")
+        p1h, s1h = grid_patterns(ms, rng, seqs, n_pat, plen, term)
+        masks, lens = ms.encode_target_masks(seqs)
+        pad = np.zeros((4, masks.shape[1]), np.uint8)
+        masks = np.concatenate([masks[:1], pad[:1], masks[1:], pad[1:]])
+        lens = np.concatenate([lens[:1], [0], lens[1:], [0, 0, 0]]).astype(
+            np.int32)
+        hits += find_hits_equal(ms, dev, masks, lens, p1h, s1h, mm, term,
+                                (7, 1 << 14, 1, 0)[i % 4], "edge grid")
+        cases += 1
+    dense = []
+    for name, masks, lens, p1h, s1h, mm, term in dense_find_hits_cases(rng):
+        counts = [find_hits_equal(ms, dev, masks, lens, p1h, s1h, mm, term,
+                                  max_hits, name)
+                  for max_hits in (100, 5000, 1 << 16, 1 << 20)]
+        if len(set(counts)) != 1 or counts[0] <= (
+                0 if name == "odd_flat" else 5000):
+            fail("find_hits case %s: n_hits %s" % (name, counts))
+        dense.append("%s %d" % (name, counts[0]))
+        cases += 4
+    say("phase 3 find_hits kernels == plain version: %d cases (%d edge-grid "
+        "hits; dense: %s)" % (cases, hits, ", ".join(dense)))
     plen, mm, term, bs, b = 20, 2, 3, 64, 3
     seqs = random_seqs(rng, bs * b - 5, 100, 1000, letters="ACGTACGTACGTNa")
     pats = planted_patterns(rng, seqs, 250, plen)
@@ -509,7 +716,8 @@ def phase_find_hits(args, report):
              % (len(dev_hits), len(host_hits)))
     say("phase 3 retry scan (n_hits > 2**17): %d hits equal to the host"
         % len(dev_hits))
-    report["find_hits"] = {"hits": len(got), "retry_hits": len(dev_hits)}
+    report["find_hits_checks"] = {"cases": cases, "hits": len(got),
+                                  "retry_hits": len(dev_hits)}
 
 
 def generate_corpus(fa_path, seed, n_fams, members, singletons):
@@ -588,13 +796,17 @@ def phase_run(args, report, work):
     with open(os.path.join(res, "pipeline_metrics.json")) as f:
         metrics = json.load(f)
     backends = metrics["backends"]
-    launches = int(backends.get("hit_codes_launches", 0))
+    launches = int(backends.get("find_hits_launches", 0))
+    batches = int(backends.get("scan_device_batches", -1))
     say("phase 4 run: %.1f s wall, nproc=%d, scan_backend=%s, device=%s, "
-        "hit_codes launches=%d" % (wall, nproc, backends.get("scan_backend"),
-                                   backends.get("device_name"), launches))
+        "find_hits launches=%d for %d device batches of its scan, hit_codes "
+        "launches=%d" % (wall, nproc, backends.get("scan_backend"),
+                         backends.get("device_name"), launches, batches,
+                         backends.get("hit_codes_launches", -1)))
     say("phase 4 stages (s): " + json.dumps(metrics["timings_s"]))
-    if launches <= 0 or backends.get("scan_backend") != "device":
-        fail("run did not scan through the hit_codes kernel")
+    if launches <= 0 or launches != batches \
+            or backends.get("scan_backend") != "device":
+        fail("run did not scan through the find_hits kernels once a batch")
     # rerun the rule-19 scan on the host backend: byte-identical outputs
     core_fa = os.path.join(res, "Core_primers_set",
                            "core_final_maxprimers_set.fa")
@@ -626,8 +838,8 @@ def phase_run(args, report, work):
         % (name, rows, host_s, metrics["timings_s"].get("scan", -1)))
     report["run"] = {"wall_s": wall, "nproc": nproc, "n_seqs": n_seqs,
                      "cut": cut, "timings_s": metrics["timings_s"],
-                     "launches": launches, "bwt_rows": rows,
-                     "host_rescan_s": host_s}
+                     "launches": launches, "scan_device_batches": batches,
+                     "bwt_rows": rows, "host_rescan_s": host_s}
     # the kernel at the shape this run's rule-19 scan gave it: the first
     # target batch of the formatted corpus against the core set's patterns
     from multiprime_tpu_torch.ops import mismatch_scan as ms
@@ -638,9 +850,12 @@ def phase_run(args, report, work):
     longest = max(map(len, seqs))
     pad_len = max(-longest % 512 + longest, 512)
     bs = ms.safe_batch_size(2048, pad_len - p1h.shape[1] + 1, p1h.shape[0])
-    masks, _ = ms.encode_target_masks(seqs[:bs], length=pad_len)
+    masks, lens = ms.encode_target_masks(seqs[:bs], length=pad_len)
     report["hit_codes_run_shape"] = measure_kernel(
         ms, masks, p1h, s1h, 1, 1, "phase 4 kernel at the run's shape")
+    report["find_hits_run_shape"] = measure_find_hits(
+        ms, masks, lens, p1h, s1h, 1, 1, 1 << 17, "phase 4 at the run's "
+        "shape")
     return res, launches
 
 
@@ -674,11 +889,12 @@ def phase_scan(args, report, work, res):
     ids, seqs = vscan.parse_fasta(fmt_fa)
     flags = ["-i", primers, "-r", fmt_fa, "-l", "18", "-t", "1", "-m", "1",
              "-s", "50,2000"]
-    outs, walls, peaks = {}, {}, {}
+    outs, walls, peaks, scan_launches = {}, {}, {}, {}
     for backend in ("device", "numpy"):
         outs[backend] = os.path.join(work, "scan_" + backend, "cov.out")
         os.makedirs(os.path.dirname(outs[backend]))
-        ms.HIT_CODES_LAUNCHES = 0
+        ms.FIND_HITS_LAUNCHES = 0
+        vscan.DEVICE_BATCHES = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         rc = cli.main(["scan", *flags, "-o", outs[backend], "--backend",
@@ -688,11 +904,13 @@ def phase_scan(args, report, work, res):
         peaks[backend] = torch.cuda.max_memory_allocated()
         if rc != 0:
             fail("scan --backend %s exited %d" % (backend, rc))
-        if backend == "device" and ms.HIT_CODES_LAUNCHES <= 0:
-            fail("scan did not launch the hit_codes kernel")
-        launches = ms.HIT_CODES_LAUNCHES if backend == "device" else 0
+        launches = scan_launches[backend] = ms.FIND_HITS_LAUNCHES
+        if backend == "device" and (launches <= 0
+                                    or launches != vscan.DEVICE_BATCHES):
+            fail("scan made %d find_hits launches for %d device batches"
+                 % (launches, vscan.DEVICE_BATCHES))
         say("phase 5 scan --backend %s: %.2f s wall, peak device memory "
-            "%.1f MiB, hit_codes launches %d" % (
+            "%.1f MiB, find_hits launches %d" % (
                 backend, walls[backend], peaks[backend] / 2 ** 20,
                 launches))
     diff = same_outputs(outs["device"], outs["numpy"])
@@ -746,6 +964,7 @@ def phase_scan(args, report, work, res):
         "peak device memory %.1f MiB; find_hits == plain version (%d hits "
         "forward)" % (len(pats), wall4, peak4 / 2 ** 20, total))
     report["scan"] = {"n_primers": n_primers, "wall_s": walls,
+                      "find_hits_launches": scan_launches["device"],
                       "peak_bytes": peaks, "mm4_wall_s": wall4,
                       "mm4_peak_bytes": peak4, "mm4_patterns": len(pats),
                       "mm4_hits_forward": total}
@@ -945,9 +1164,11 @@ def measure_bitmap(ms, tm, planes, sfx, plen, mm, term, bs):
 
 def phase_dimer(args, report, primers_fa):
     """The dimer matrix at full size on the unique candidate primers: the
-    fused and unfused device paths equal to each other and to the host
-    search on a seeded sample; then the match-count kernel timed at the
-    fused path's first bucket."""
+    fused (dimer_fired kernel) and unfused (match-count kernel) device
+    paths equal to each other and to the host search on a seeded sample;
+    then the match-count kernel timed at the fused path's first bucket,
+    the dimer_fired kernel held to its plain version on an edge grid and
+    timed at that bucket."""
     import torch
     from multiprime_tpu_torch.ops import dimer
     from multiprime_tpu_torch.ops import mismatch_scan as ms
@@ -961,16 +1182,23 @@ def phase_dimer(args, report, primers_fa):
     walls, launches = {}, {}
     t_phase = time.time()
     mats = {}
-    for fn in ("dimer_hit_matrix_fused", "dimer_hit_matrix"):
+    # the fused path through the dimer_fired kernel alone, the unfused one
+    # through the match-count kernel alone
+    for fn, kernel in (("dimer_hit_matrix_fused", "dimer_fired"),
+                       ("dimer_hit_matrix", "match_counts")):
         ms.MATCH_COUNTS_LAUNCHES = 0
+        dimer.DIMER_FIRED_LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.time()
         mats[fn] = getattr(dimer, fn)(primers, device=dev)
         torch.cuda.synchronize()
         walls[fn] = time.time() - t0
-        launches[fn] = ms.MATCH_COUNTS_LAUNCHES
-        if launches[fn] <= 0:
-            fail("%s did not launch the match_counts kernel" % fn)
+        counts = {"dimer_fired": dimer.DIMER_FIRED_LAUNCHES,
+                  "match_counts": ms.MATCH_COUNTS_LAUNCHES}
+        launches[fn] = counts[kernel]
+        if counts[kernel] <= 0 or sum(counts.values()) != counts[kernel]:
+            fail("%s launched %s, not the %s kernel alone"
+                 % (fn, counts, kernel))
     if not np.array_equal(mats["dimer_hit_matrix_fused"],
                           mats["dimer_hit_matrix"]):
         fail("dimer_hit_matrix_fused and dimer_hit_matrix differ")
@@ -998,14 +1226,147 @@ def phase_dimer(args, report, primers_fa):
                        "host_sample_s": host_s,
                        "phase_s": time.time() - t_phase}
     report["match_counts"] = measure_counts(ms, dimer, lay, dev)
-    report["match_counts"]["launches"] = sum(launches.values())
+    report["match_counts"]["launches"] = launches["dimer_hit_matrix"]
+    cases = dimer_grid_equal(dimer, ms, dev, rng)
+    report["dimer_fired"] = measure_dimer_fired(ms, dimer, lay, dev)
+    report["dimer_fired"].update(
+        launches=launches["dimer_hit_matrix_fused"], grid_cases=cases)
+
+
+def dimer_edge_inputs(ms, rng, lp, width=None, n_t=37, n_e=300):
+    """Fused-pass inputs: targets of 0-40 bases left-padded by z = lp - 5
+    (every 7th a zero-length padding row), ends of 5..lp bases cut from a
+    target's first window, its last, or one between (every 4th random),
+    trigger rows of W columns with columns 0 and W - 1 set, so that d2
+    clips at both ends."""
+    z = lp - 5
+    lut = np.array(list("ACGT"))
+    seqs = [("".join(rng.choice(lut, size=int(rng.integers(5, 41))))
+             if t % 7 else "") for t in range(n_t)]
+    lns = rng.integers(5, min(lp, 40) + 1, size=n_e)
+    lns[0] = 5
+    ends = []
+    for e, ln in enumerate(lns):
+        s = seqs[int(rng.integers(0, n_t))]
+        if len(s) >= ln and e % 4:
+            at = (0, len(s) - ln, int(rng.integers(0, len(s) - ln + 1)))[
+                e % 3]
+            ends.append(s[at:at + ln])
+        else:
+            ends.append("".join(rng.choice(lut, size=int(ln))))
+    t_len = z + 40
+    t_len += -t_len % 16
+    masks = np.zeros((n_t, t_len), np.uint8)
+    codes, lens = ms.encode_target_codes(seqs)
+    masks[:, z:z + codes.shape[1]] = codes
+    p1h = np.zeros((n_e, lp, 4), np.uint8)
+    for k, e in enumerate(ends):
+        p1h[k, lp - len(e):] = ms.encode_primers([e])[0]
+    width = width or int(rng.integers(3, 30))
+    trig = rng.random((n_e, width)) < 0.5
+    trig[:, 0] = True
+    trig[1::2, -1] = True
+    return (masks, lens.astype(np.int64), p1h, lns.astype(np.int64),
+            (lp - lns).astype(np.int64), z, trig)
+
+
+def fused_args(ms, dev, masks, lens, p1h, lns, shifts, z, trig):
+    """The arguments of dimer._fused_kernel on the card."""
+    import torch
+    return [torch.from_numpy(masks).to(dev), torch.from_numpy(lens).to(dev),
+            ms.pattern_planes(p1h, device=dev), p1h.shape[1], z,
+            torch.from_numpy(lns).to(dev), torch.from_numpy(shifts).to(dev),
+            torch.from_numpy(trig).to(dev)]
+
+
+def dimer_grid_equal(dimer, ms, dev, rng):
+    """The dimer_fired kernel against its plain version on the edge grid
+    (lp 8, 24, 40, 64; trigger rows of 1, 2, 65 and a random number of
+    columns) -> cases."""
+    import torch
+    cases = 0
+    for lp in (8, 24, 40, 64):
+        for width in (None, 1, 2, 65):
+            args = fused_args(ms, dev, *dimer_edge_inputs(ms, rng, lp,
+                                                          width))
+            got = dimer._fused_kernel(*args)
+            want = dimer._fused_kernel_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or not bool(want.any()):
+                fail("dimer_fired differs from its plain version at lp=%d "
+                     "W=%d (%d vs %d fired)" % (
+                         lp, args[-1].shape[1], int(got.sum()),
+                         int(want.sum())))
+            cases += 1
+    say("phase 8 dimer_fired grid: %d cases equal (lp 8-64, d2 clipped at "
+        "both ends, padding rows)" % cases)
+    return cases
+
+
+def measure_dimer_fired(ms, dimer, lay, dev):
+    """The dimer_fired kernel at the fused path's first bucket vs its plain
+    version (exact), then CUDA-event times of kernel and plain version
+    (match counts + torch epilogue) beside the bound: the operations are a
+    dozen int32 operations for each window this data tests (from the
+    first skipped window to the first hit or the last window inside the
+    target), the bytes each input once and the verdicts."""
+    import torch
+    lp, z = lay["lp"], lay["z"]
+    t_len = lay["masks"].shape[1]
+    tb = min(1024, ms.safe_batch_size(1024, t_len - lp + 1, 4096))
+    args = fused_args(ms, dev, lay["masks"][:tb], lay["lengths"][:tb].astype(
+        np.int64), lay["p1h"][:4096], lay["lns"][:4096].astype(np.int64),
+        lay["shifts"][:4096].astype(np.int64), z, lay["trig"][:4096])
+    masks, lens, planes, _, _, ln_vec, shift_vec, trig = args
+    got = dimer._fused_kernel(*args)
+    want = dimer._fused_kernel_reference(*args)
+    torch.cuda.synchronize()
+    max_err = int((got.int() - want.int()).abs().max())
+    if max_err != 0:
+        fail("dimer_fired differs from its plain version at the fused "
+             "bucket")
+    fired = int(want.sum())
+    # the windows a thread tests: o from max(0, z - shift) to the first
+    # hit, or to its last window inside the target when none hits
+    counts = ms.match_counts_reference(masks, planes, plen=lp)
+    n_out = counts.shape[1]
+    o = torch.arange(n_out, device=dev)[None, :, None]
+    real_o = o + (shift_vec - z)[None, None, :]
+    ok = (counts >= ln_vec[None, None, :]) & (real_o >= 0) \
+        & ((real_o + ln_vec[None, None, :]) <= lens[:, None, None])
+    del counts, real_o
+    start = (z - shift_vec).clamp(min=0)[None, :]
+    last = torch.minimum(lens[:, None] - ln_vec[None, :]
+                         - (shift_vec - z)[None, :],
+                         torch.full_like(start, n_out - 1))
+    exists = ok.any(dim=1)
+    first = ok.to(torch.uint8).argmax(dim=1)
+    tested = int(torch.where(exists, first - start + 1,
+                             (last - start + 1).clamp(min=0)).sum())
+    del ok
+    kernel_ms = cuda_ms(lambda: dimer._fused_kernel(*args), 20)
+    plain_ms = cuda_ms(lambda: dimer._fused_kernel_reference(*args), 5)
+    n, e_all = masks.shape[0], planes.shape[0]
+    in_bytes = masks.numel() + 8 * n + e_all * (32 + 16) + trig.numel()
+    out = {"shape": {"T": n, "L": t_len, "O": n_out, "E": e_all, "lp": lp,
+                     "W": trig.shape[1]},
+           "fired": fired, "windows_tested": tested,
+           "windows_all": n * n_out * e_all, "max_abs_err": max_err,
+           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           **bound(in_bytes + n * e_all, 12 * tested, INT32_OPS_PER_S)}
+    say("phase 8 dimer_fired kernel T=%d L=%d E=%d lp=%d: equal, %d fired; "
+        "windows tested %d of %d; kernel_ms=%.4f plain_ms=%.4f (match "
+        "counts + torch epilogue) bound_ms=%.4f (%s, %.1f%%)"
+        % (n, t_len, e_all, lp, fired, tested, out["windows_all"],
+           kernel_ms, plain_ms, out["bound_ms"], out["bound_by"],
+           100 * out["bound_ms"] / kernel_ms))
+    return out
 
 
 def measure_counts(ms, dimer, lay, dev):
     """The match-count kernel at the fused path's first bucket vs its plain
-    version (exact), then CUDA-event times of kernel, plain version, a
-    conv1d yardstick and the whole fused pass (kernel + torch epilogue),
-    beside the bound."""
+    version (exact), then CUDA-event times of kernel, plain version and a
+    conv1d yardstick beside the bound."""
     import torch
     lp, z = lay["lp"], lay["z"]
     t_len = lay["masks"].shape[1]
@@ -1035,25 +1396,17 @@ def measure_counts(ms, dimer, lay, dev):
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             return torch.nn.functional.conv1d(x, weight)
     library_ms = cuda_ms(library, 3)
-    e_sl = slice(0, p_all)
-    args = [torch.from_numpy(lay[k][e_sl]).to(dev).long()
-            for k in ("lns", "shifts")]
-    lens = torch.from_numpy(lay["lengths"][:tb]).to(dev).long()
-    trig = torch.from_numpy(lay["trig"][e_sl]).to(dev)
-    fused_ms = cuda_ms(lambda: dimer._fused_kernel(
-        masks, lens, planes, lp, z, *args, trig), 5)
     # masks and planes in, float32 counts out; the bf16-matmul form's
     # operations
     out = {"shape": {"T": n, "L": t_len, "O": n_out, "E": p_all, "lp": lp},
            "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "fused_pass_ms": fused_ms,
+           "library_ms": library_ms,
            **bound(n * t_len + p_all * 32 + 4 * n * n_out * p_all,
                    2 * n * n_out * p_all * 4 * lp, BF16_OPS_PER_S)}
     say("phase 8 match_counts kernel T=%d L=%d O=%d E=%d lp=%d: equal; "
-        "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s); "
-        "whole fused pass (kernel + torch epilogue) %.4f ms"
+        "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s)"
         % (n, t_len, n_out, p_all, lp, kernel_ms, plain_ms, library_ms,
-           out["bound_ms"], out["bound_by"], fused_ms))
+           out["bound_ms"], out["bound_by"]))
     return out
 
 
@@ -1104,13 +1457,19 @@ def phase_device_run(args, report, work, res):
         metrics = json.load(f)
     backends = metrics["backends"]
     stage_a, align = backends["stage_a_served"], backends["align_served"]
+    find_launches = int(backends.get("find_hits_launches", 0))
+    batches = int(backends.get("scan_device_batches", -1))
     say("phase 9 device run: %.1f s wall, nproc=%d, device=%s, Stage A "
-        "served %s, align served %s, hit_codes launches=%d"
+        "served %s, align served %s, find_hits launches=%d for %d device "
+        "batches of its scan"
         % (wall, nproc, backends.get("device_name"), json.dumps(stage_a),
-           json.dumps(align), backends.get("hit_codes_launches", 0)))
+           json.dumps(align), find_launches, batches))
     if set(stage_a) != {"device"} or set(align) - {"device", "none"} \
             or align.get("device", 0) <= 0:
         fail("the device run's Stage A or align DP did not run on the card")
+    if find_launches <= 0 or find_launches != batches:
+        fail("the device run made %d find_hits launches for %d device "
+             "batches" % (find_launches, batches))
     diff = tree_diff(host_res, res)
     if diff is not None:
         fail("device run output %s differs from phase 4's host run" % diff)
@@ -1163,6 +1522,8 @@ def phase_device_run(args, report, work, res):
                             "refine_dp_warp_launches": backends.get(
                                 "refine_dp_warp_launches", 0),
                             "stage_a_kernel_launches": stage_a_launches,
+                            "find_hits_launches": find_launches,
+                            "scan_device_batches": batches,
                             "design_blocks_per_run": design_blocks,
                             "gotoh_blocks_per_run": gotoh_blocks}
     shutil.rmtree(host_res, ignore_errors=True)
@@ -1820,6 +2181,51 @@ def phase_device_ops(args, report, res):
     report["refine_dp"] = rk
 
 
+def json_plain(o):
+    """JSON for the NumPy values in the report."""
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if isinstance(o, np.generic):
+        return o.item()
+    raise TypeError("%r is not JSON serializable" % (o,))
+
+
+# phase 10 in a process of its own (argv: its input JSON, the results path,
+# the JSON file for the report keys it writes)
+DEVICE_OPS_CHILD = r"""
+import argparse, json, sys
+import chip_smoke
+with open(sys.argv[1]) as f:
+    given = json.load(f)
+report = {"ptxas": given["ptxas"]}
+chip_smoke.phase_device_ops(argparse.Namespace(**given["args"]), report,
+                            sys.argv[2])
+with open(sys.argv[3], "w") as f:
+    json.dump({k: report[k] for k in ("device_ops", "gotoh_dp", "refine_dp")},
+              f, default=chip_smoke.json_plain)
+"""
+
+
+def phase_device_ops_apart(args, report, work, res):
+    """phase_device_ops in a fresh process that starts no other: in this
+    one, after the CUDA processes of phases 4, 5 and 9 have come and gone,
+    a torch.profiler session may see no device events, and phase 10 holds
+    launches to the profiler's count (on an H100 with torch 2.11, a loop
+    of sessions in one process lost about half of them once other CUDA
+    processes started and ended between them, and none of 236 without)."""
+    given = os.path.join(work, "device_ops_in.json")
+    got = os.path.join(work, "device_ops_out.json")
+    with open(given, "w") as f:
+        json.dump({"args": vars(args), "ptxas": report["ptxas"]}, f,
+                  default=json_plain)
+    rc = subprocess.run([sys.executable, "-c", DEVICE_OPS_CHILD, given, res,
+                         got], cwd=HERE).returncode
+    if rc != 0:
+        fail("phase 10's process exited %d" % rc)
+    with open(got) as f:
+        report.update(json.load(f))
+
+
 # the specificity background: BACKGROUND_SEQS sequences of BACKGROUND_LEN
 # bases, about a set of 16 bacterial genomes, the last one a few segment
 # strides shorter so that the scan's last batch is part padding; PLANTS
@@ -1830,15 +2236,16 @@ BACKGROUND_LEN = 4000000
 PLANTS = 200
 STRADDLES = 30
 MIN_PLANTS_FOUND = 150
-# written before the card's runs (PERF.md): the compaction's ms on one
-# [16, 65,536] x 744 batch (the second prediction, for its int64-word
-# form), and specificity's peak MiB
-COMPACTION_PREDICTED_MS = (1.8, 2.8)
-PEAK_PREDICTED_MIB = (1000, 1500)
+# written before the card's runs (PERF.md): the find_hits kernels' ms on
+# one [16, 65,536] x 744 batch, and specificity's peak MiB without the
+# codes tensor
+FIND_HITS_PREDICTED_MS = (0.2, 0.6)
+PEAK_PREDICTED_MIB = (200, 400)
 
 # runs one subcommand of the port's CLI in this interpreter, then writes a
 # side file: exit code, wall, each scan_hits_long call's seconds and hits,
-# hit_codes launches, peak device memory and the scan backend
+# find_hits launches and the scans' device batches, peak device memory and
+# the scan backend
 CLI_DRIVER = r"""
 import json, sys, time
 import torch
@@ -1857,7 +2264,8 @@ vscan.scan_hits_long = timed
 t0 = time.time()
 rc = cli.main(sys.argv[2:])
 side = {"rc": rc, "wall_s": time.time() - t0, "scans": calls,
-        "launches": ms.HIT_CODES_LAUNCHES, "backend": vscan.LAST_BACKEND,
+        "launches": ms.FIND_HITS_LAUNCHES, "batches": vscan.DEVICE_BATCHES,
+        "backend": vscan.LAST_BACKEND,
         "peak_bytes": torch.cuda.max_memory_allocated()
         if torch.cuda.is_initialized() else 0}
 with open(sys.argv[1], "w") as f:
@@ -1989,12 +2397,47 @@ def write_background(args, work, primers, lengths):
     return path, sites
 
 
+# one find_hits call's device time by CUDA kernel, in a process of its own
+# (argv: the batch's .npz, find_hits's keywords as JSON)
+BREAKDOWN_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+import chip_smoke
+from multiprime_tpu_torch.ops import mismatch_scan as ms
+d = np.load(sys.argv[1])
+dev = torch.device(chip_smoke.DEVICE)
+tm, tl = (torch.from_numpy(d[k]).to(dev) for k in ("masks", "lens"))
+planes, sfx = ms.pack_patterns(d["p1h"], d["s1h"], device=dev)
+kw = json.loads(sys.argv[2])
+print(json.dumps(chip_smoke.kernel_breakdown(
+    lambda: ms.find_hits(tm, tl, planes, sfx, **kw))))
+"""
+
+
+def find_hits_breakdown(work, masks, lens, p1h, s1h, **kw):
+    """kernel_breakdown of one find_hits call on this batch, in a fresh
+    process: here, after phase 10's torch.profiler sessions, a session
+    gives no device events for these launches; the first session of a
+    process does."""
+    path = os.path.join(work, "find_hits_batch.npz")
+    np.savez(path, masks=masks, lens=lens, p1h=p1h, s1h=s1h)
+    got = subprocess.run([sys.executable, "-c", BREAKDOWN_CHILD, path,
+                          json.dumps(kw)], cwd=HERE, env=device_env(),
+                         capture_output=True, text=True)
+    if got.returncode != 0:
+        fail("the find_hits breakdown exited %d: %s"
+             % (got.returncode, got.stderr[-2000:]))
+    return json.loads(got.stdout.strip().splitlines()[-1])
+
+
 def phase_specificity(args, report, work, primers):
     """`specificity` through the CLI against the seeded background, on the
     card and on the host backend, with and without --exhaustive-join: the
     four output files byte-identical between the backends, the planted
-    amplicons found; then the hit-code kernel and the compaction timed at
-    the background's batch shape."""
+    amplicons found, find_hits once a device batch; then the hit-code and
+    find_hits kernels held to their plain versions and timed at the
+    background's batch shape."""
     import torch
     from multiprime_tpu_torch.ops import mismatch_scan as ms
     from multiprime_tpu_torch.validate import scan as vscan
@@ -2036,15 +2479,18 @@ def phase_specificity(args, report, work, primers):
                            + (["--exhaustive-join"] if join == "exhaustive"
                               else []), work, name, host=backend == "host")
             want = "device" if backend == "device" else "host"
-            if side["backend"] != want or (backend == "device"
-                                           and side["launches"] <= 0):
-                fail("specificity %s ran the %s scan with %d hit_codes "
-                     "launches" % (name, side["backend"], side["launches"]))
+            if side["backend"] != want or (backend == "device" and (
+                    side["launches"] <= 0
+                    or side["launches"] != side["batches"])):
+                fail("specificity %s ran the %s scan with %d find_hits "
+                     "launches for %d device batches" % (
+                         name, side["backend"], side["launches"],
+                         side["batches"]))
             with open(os.path.join(d, "s.out")) as f:
                 side["rows"] = sum(1 for _ in f) - 1
             out["runs"][name] = side
             say("phase 11 specificity %s on the %s backend: %.2f s wall "
-                "(process %.2f s), scans %s s, hits %s, hit_codes launches "
+                "(process %.2f s), scans %s s, hits %s, find_hits launches "
                 "%d, peak device memory %.1f MiB, %d rows" % (
                     join, backend, side["wall_s"], side["process_s"],
                     [round(c["s"], 2) for c in side["scans"]],
@@ -2086,33 +2532,27 @@ def phase_specificity(args, report, work, primers):
         ms, masks, p1h, s1h, 1, 4, "phase 11 kernel at the background's "
         "last batch (%d segments, %d padding rows)" % (len(segs),
                                                        bs - len(segs)))
-    dev = torch.device(DEVICE)
-    tm = torch.from_numpy(masks).to(dev)
-    tl = torch.from_numpy(lens).to(dev)
-    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
-    codes = ms.hit_codes(tm, planes, sfx, plen=18, mm=1, term=4)
-    compaction_ms = cuda_ms(lambda: ms.find_hits_from_codes(
-        codes, tl, plen=18, max_hits=1 << 17), 10)
-    compaction_bound = codes.numel() / HBM_BYTES_PER_S * 1e3
-    out["compaction"] = {"ms": compaction_ms, "bound_ms": compaction_bound,
-                         "bytes": codes.numel(),
-                         "predicted_ms": COMPACTION_PREDICTED_MS}
-    say("phase 11 compaction (find_hits_from_codes, two levels) of one "
-        "batch %s: %.4f ms (predicted %.1f-%.1f), bytes bound %.4f ms; %d "
-        "batches of %d segments a scan"
-        % (list(codes.shape), compaction_ms, *COMPACTION_PREDICTED_MS,
-           compaction_bound, out["batches_per_scan"], bs))
-    out["compaction"]["by_kernel"] = kernel_breakdown(
-        lambda: ms.find_hits_from_codes(codes, tl, plen=18,
-                                        max_hits=1 << 17))
-    say("phase 11 compaction by CUDA kernel (device ms, launches): %s"
-        % json.dumps(out["compaction"]["by_kernel"]))
+    fh = measure_find_hits(
+        ms, masks, lens, p1h, s1h, 1, 4, 1 << 17, "phase 11 at the "
+        "background's last batch (%d segments, %d padding rows)"
+        % (len(segs), bs - len(segs)))
+    fh["predicted_ms"] = FIND_HITS_PREDICTED_MS
+    fh["by_kernel"] = find_hits_breakdown(work, masks, lens, p1h, s1h, plen=18,
+                                          mm=1, term=4, max_hits=1 << 17)
+    if not fh["by_kernel"]:
+        fail("torch.profiler gave no device events for one find_hits call")
+    say("phase 11 find_hits by CUDA kernel (device ms, launches): %s"
+        % json.dumps(fh["by_kernel"]))
+    report["find_hits"] = fh
+    say("phase 11 find_hits kernels %.4f ms a batch (predicted %.1f-%.1f; "
+        "hit_codes + compaction %.4f), %d batches of %d segments a scan"
+        % (fh["ms"], *FIND_HITS_PREDICTED_MS, fh["codes_path_ms"],
+           out["batches_per_scan"], bs))
     peaks = [out["runs"][n]["peak_bytes"] / 2 ** 20 for n in out["runs"]
              if n.endswith("_device")]
     out["peak_mib_predicted"] = PEAK_PREDICTED_MIB
     say("phase 11 specificity peak device memory %s MiB (predicted "
         "%d-%d)" % ([round(p, 1) for p in peaks], *PEAK_PREDICTED_MIB))
-    del codes
     report["specificity"] = out
 
 
@@ -2162,9 +2602,12 @@ def phase_update(args, report, work, res):
                         "-f", "DO", "-o", os.path.join(d, "upd"), "--device",
                         DEVICE], work, "update_" + backend, host=host)
         if side["backend"] != ("host" if host else "device") or (
-                not host and side["launches"] <= 0):
-            fail("update on the %s backend ran the %s scan" % (
-                backend, side["backend"]))
+                not host and (side["launches"] <= 0
+                              or side["launches"] != side["batches"])):
+            fail("update on the %s backend ran the %s scan (%d find_hits "
+                 "launches for %d device batches)" % (
+                     backend, side["backend"], side["launches"],
+                     side["batches"]))
         flt = run_cli(["nondimer-filter", "-i",
                        os.path.join(d, "new", "new.fa"), "-p",
                        os.path.join(d, "core", "core.fa"), "-o",
@@ -2177,7 +2620,7 @@ def phase_update(args, report, work, res):
         out[backend] = {"update": side, "nondimer_filter": flt,
                         "lines": counts}
         say("phase 12 update -f DO on the %s backend: %.2f s wall, scans %s "
-            "s, hit_codes launches %d, peak device memory %.1f MiB; "
+            "s, find_hits launches %d, peak device memory %.1f MiB; "
             "nondimer-filter %.2f s; lines %s" % (
                 backend, side["wall_s"],
                 [round(c["s"], 2) for c in side["scans"]], side["launches"],
@@ -2214,9 +2657,13 @@ def phase_onestep(args, report, work, res):
             "--device", DEVICE], work, "onestep_" + backend,
             host=backend == "host")
         if side["backend"] != ("host" if backend == "host" else "device") \
-                or (backend == "device" and side["launches"] <= 0):
-            fail("onestep on the %s backend ran the %s scan"
-                 % (backend, side["backend"]))
+                or (backend == "device" and (
+                    side["launches"] <= 0
+                    or side["launches"] != side["batches"])):
+            fail("onestep on the %s backend ran the %s scan (%d find_hits "
+                 "launches for %d device batches)" % (
+                     backend, side["backend"], side["launches"],
+                     side["batches"]))
         walls[backend], sides[backend] = side["wall_s"], side
         if backend == "device":
             os.rename(d, d + "_device")
@@ -2226,7 +2673,7 @@ def phase_onestep(args, report, work, res):
              "backend" % diff)
     n_files = sum(len(n) for _, _, n in os.walk(d))
     say("phase 13 onestep on %s: %d files, device == host byte for byte; "
-        "%.2f s on the card (%d hit_codes launches), %.2f s on the host "
+        "%.2f s on the card (%d find_hits launches), %.2f s on the host "
         "backend" % (name, n_files, walls["device"],
                      sides["device"]["launches"], walls["host"]))
     report["onestep"] = {"cluster": name, "files": n_files, "runs": sides}
@@ -2353,27 +2800,30 @@ def phase_mesh(args, report, work, res, keys):
     t0 = time.time()
     want = vscan.scan_hits(seqs, keys, vscan.ScanParams(**params), dev)
     single_s = time.time() - t0
-    ms.HIT_CODES_LAUNCHES = 0
+    ms.FIND_HITS_LAUNCHES = 0
+    vscan.DEVICE_BATCHES = 0
     t0 = time.time()
     with pmesh.use_mesh(mesh):
         got = vscan.scan_hits(seqs, keys, vscan.ScanParams(**params), dev)
     torch.cuda.synchronize()
     sharded_s = time.time() - t0
-    scan_launches = ms.HIT_CODES_LAUNCHES
-    if vscan.LAST_BACKEND != "device-sharded" or scan_launches <= 0:
-        fail("the scan under the mesh ran %s with %d hit_codes launches"
-             % (vscan.LAST_BACKEND, scan_launches))
+    scan_launches = ms.FIND_HITS_LAUNCHES
+    if vscan.LAST_BACKEND != "device-sharded" or scan_launches <= 0 \
+            or scan_launches != vscan.DEVICE_BATCHES:
+        fail("the scan under the mesh ran %s with %d find_hits launches for "
+             "%d batch shards" % (vscan.LAST_BACKEND, scan_launches,
+                                  vscan.DEVICE_BATCHES))
     if got != want:
         fail("scan_hits under the mesh differs from the unsharded device "
              "scan (%d vs %d hits)" % (len(got), len(want)))
     out["scan"] = {"targets": len(seqs), "patterns": len(keys),
                    "hits": len(got), "sharded_s": sharded_s,
-                   "single_s": single_s, "hit_codes_launches": scan_launches}
+                   "single_s": single_s, "find_hits_launches": scan_launches}
     say("phase 14 scan_hits under the mesh == unsharded device scan: %d "
         "targets x %d keys, %d hits; %.2f s sharded, %.2f s unsharded; "
-        "hit_codes launches %d (%s)" % (len(seqs), len(keys), len(got),
-                                        sharded_s, single_s, scan_launches,
-                                        vscan.LAST_BACKEND))
+        "find_hits launches %d, one a batch shard (%s)"
+        % (len(seqs), len(keys), len(got), sharded_s, single_s,
+           scan_launches, vscan.LAST_BACKEND))
     # `run` in process on the cut corpus, with and without the mesh
     fa = cut_corpus(args, work)
     cut_res = os.path.join(work, "cut_res")
@@ -2385,22 +2835,24 @@ def phase_mesh(args, report, work, res, keys):
         run_pipeline(None, **kw)
         single_s = time.time() - t0
         os.rename(cut_res, cut_res + "_single")
-        ms.HIT_CODES_LAUNCHES = 0
+        ms.FIND_HITS_LAUNCHES = 0
+        vscan.DEVICE_BATCHES = 0
         t0 = time.time()
         with pmesh.use_mesh(mesh):
             pipe, _ = run_pipeline(None, **kw)
         mesh_s = time.time() - t0
-        run_launches = ms.HIT_CODES_LAUNCHES
+        run_launches = ms.FIND_HITS_LAUNCHES
+        run_batches = vscan.DEVICE_BATCHES
     backends = pipe._backends()
     served = backends["stage_a_served"]
     stage_a_run = backends["stage_a_kernel_launches"]
     if set(served) != {"device-sharded"} or run_launches <= 0 \
-            or stage_a_run <= 0 \
+            or run_launches != run_batches or stage_a_run <= 0 \
             or backends.get("scan_backend") != "device-sharded":
         fail("the run under the mesh: Stage A served %s, scan %s, %d "
-             "hit_codes launches, %d Stage-A kernel launches"
-             % (served, backends.get("scan_backend"), run_launches,
-                stage_a_run))
+             "find_hits launches for %d batch shards, %d Stage-A kernel "
+             "launches" % (served, backends.get("scan_backend"),
+                           run_launches, run_batches, stage_a_run))
     diff = tree_diff(cut_res + "_single", cut_res)
     if diff is not None:
         fail("the run under the mesh wrote %s unlike the run without" % diff)
@@ -2408,12 +2860,12 @@ def phase_mesh(args, report, work, res, keys):
     shutil.rmtree(cut_res)
     out["run"] = {"files": n_files, "mesh_s": mesh_s, "single_s": single_s,
                   "stage_a_served": served,
-                  "hit_codes_launches": run_launches,
+                  "find_hits_launches": run_launches,
                   "stage_a_kernel_launches": stage_a_run}
     say("phase 14 run under the mesh (--stage-a device, nproc=%d, the "
         "workers handed the mesh): tree == the run without it (%d files); "
         "%.1f s with the mesh, %.1f s without; Stage A served %s, scan %s, "
-        "hit_codes launches %d, Stage-A windows kernel launches %d (one a "
+        "find_hits launches %d, Stage-A windows kernel launches %d (one a "
         "shard and block)" % (kw["nproc"], n_files, mesh_s, single_s,
                               json.dumps(served), backends["scan_backend"],
                               run_launches, stage_a_run))
@@ -2536,12 +2988,12 @@ def phase_crossover(args, report, work, res, keys):
     link["rtt_ms"] = link["dispatch_ms"] = (time.perf_counter() - t0) / 200 \
         * 1e3
     del d
-    # a CUDA context and the hit-code library in a fresh process
+    # a CUDA context and the scan's library in a fresh process
     code = ("import time, torch\nt0 = time.perf_counter()\n"
             "torch.zeros(1, device='cuda')\ntorch.cuda.synchronize()\n"
             "t1 = time.perf_counter()\n"
             "from multiprime_tpu_torch.ops import _cuda\n"
-            "_cuda.load('hit_codes')\n"
+            "_cuda.load('find_hits')\n"
             "print(t1 - t0, time.perf_counter() - t1)\n")
     starts = []
     for _ in range(2):
@@ -2909,7 +3361,7 @@ def main():
         phase(7, phase_bitmap, res, keys)
         phase(8, phase_dimer, primers)
         phase(9, phase_device_run, work, res)
-        phase(10, phase_device_ops, res)
+        phase(10, phase_device_ops_apart, work, res)
         phase(11, phase_specificity, work, primers)
         phase(12, phase_update, work, res)
         phase(13, phase_onestep, work, res)
@@ -2918,27 +3370,55 @@ def main():
         phase(16, phase_crossover, work, res, keys)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    report["hit_codes"]["launches"] = launches
-    # the launches of every path that drove the kernel, each counted from 0
-    # over that path alone (the CLI paths each in a process of its own)
+    # the launches of the find_hits kernels on every path that drove them,
+    # each counted from 0 over that path alone (the CLI paths each in a
+    # process of its own), each equal to the path's device batches; the
+    # run's rule-19 scan is the main path
     spec = report["specificity"]["runs"]
     mesh = report["mesh"]
     by_path = {"run": launches,
+               "device_run": report["device_run"]["find_hits_launches"],
+               "scan": report["scan"]["find_hits_launches"],
                "specificity": sum(spec[n]["launches"] for n in spec
                                   if n.endswith("_device")),
                "update": report["update"]["device"]["update"]["launches"],
                "onestep": report["onestep"]["runs"]["device"]["launches"],
-               "mesh_scan": mesh["scan"]["hit_codes_launches"],
-               "mesh_run": mesh["run"]["hit_codes_launches"]}
+               "mesh_scan": mesh["scan"]["find_hits_launches"],
+               "mesh_run": mesh["run"]["find_hits_launches"]}
+    fh = report["find_hits"]
+    # hit_codes is on no scan path now: its entry holds phase 11's numbers
+    # and the launches of phase 11's call of the entry point whose codes
+    # are held to find_hits's list
+    codes_launches = fh["hit_codes_launches"]
     kernels = {"kernels": [
-        dict(kernel_entry(report["hit_codes"], "hit_codes", "hit_codes.cu",
+        dict(kernel_entry(dict(fh, launches=launches), "find_hits",
+                          "find_hits.cu",
+                          "multiprime_tpu/ops/mismatch_scan.py:462"),
+             launches_by_path=by_path, kernels=3,
+             codes_path_ms=fh["codes_path_ms"],
+             compaction_ms=fh["compaction_ms"], peak_mib=fh["peak_mib"],
+             codes_path_peak_mib=fh["codes_path_peak_mib"],
+             library="torch.nonzero of the masked hit_codes codes",
+             run_shape={k: report["find_hits_run_shape"][k] for k in (
+                 "shape", "ms", "plain_ms", "codes_path_ms", "bound_ms",
+                 "bound_by", "library_ms")}),
+        dict(kernel_entry(report["dimer_fired"], "dimer_fired",
+                          "dimer_fired.cu", "multiprime_tpu/ops/dimer.py:134"),
+             launches_by_path={"dimer_fused": report["dimer_fired"][
+                 "launches"]}),
+        dict(kernel_entry(dict(report["hit_codes_background_shape"],
+                               launches=codes_launches),
+                          "hit_codes", "hit_codes.cu",
                           "multiprime_tpu/ops/mismatch_scan.py:173"),
-             launches_by_path=by_path),
+             launches_by_path={"hit_codes_entry": codes_launches},
+             main_shape={k: report["hit_codes"][k] for k in (
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
         dict(kernel_entry(report["match_counts"], "match_counts",
                           "match_counts.cu",
                           "multiprime_tpu/ops/mismatch_scan.py:150"),
              launches_by_path={
-                 "dimer": report["match_counts"]["launches"],
+                 "dimer_unfused": report["match_counts"]["launches"],
                  "mesh_coverage":
                      mesh["coverage"]["match_counts_launches"]}),
         kernel_entry(report["hit_window_bitmap"], "hit_window_bitmap",

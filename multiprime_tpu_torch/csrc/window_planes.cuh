@@ -1,5 +1,5 @@
-// Window bit-planes of match_counts.cu, and the purity rule of the staged
-// rows of window_mma.cuh (hit_codes.cu).
+// Window bit-planes of match_counts.cu and dimer_fired.cu, and the purity
+// rule of the staged rows of window_mma.cuh (hit_codes.cu, find_hits.cu).
 //
 // A window of plen target positions is packed as four bit-planes, one per
 // base: bit k of plane b is set iff bit b of the window's k-th 4-bit mask is

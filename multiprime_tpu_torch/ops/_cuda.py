@@ -115,6 +115,16 @@ _LAUNCHERS = {
         _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _INT, _INT, _PTR)},
     "match_counts": {"match_counts": (_PTR, _PTR, _PTR, _I64, _I64, _I64,
                                       _INT, _PTR)},
+    # masks, lengths, lengths are int64, planes, suffix planes, counts and
+    # offsets scratch and its entries, n_hits, hit_idx, mism, N, L, P,
+    # plen, mm, term, max_hits, stream
+    "find_hits": {"find_hits": (_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR,
+                                _I64, _PTR, _PTR, _PTR, _I64, _I64, _I64,
+                                _INT, _INT, _INT, _I64, _PTR)},
+    # masks, lens, planes, ln, shift, trig, fired, T, L, E, W, lp, z, stream
+    "dimer_fired": {"dimer_fired": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                    _PTR, _I64, _I64, _I64, _I64, _INT, _I64,
+                                    _PTR)},
     # c, la, bmat, lbs, M, lb, pointers, ops, steps, then row scratch,
     # region bytes, threads (the CTA kernel) or columns a lane (the warp
     # kernel), then clocks, stream

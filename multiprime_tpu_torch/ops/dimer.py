@@ -12,14 +12,18 @@ Here the search is an exact-match correlation on the card:
    primer set gives every occurrence with its offset;
 3. the Loss / dG verdict depends only on (end, d2), precomputed per end as
    a trigger table over d2 = len(primer) - len(end) - offset;
-4. the epilogue (first occurrence, d2, trigger gather) runs as torch ops on
-   the device, and only the fired (target, end) pairs reach the host, which
-   ORs them into the directional matrix hit[i, j] = "some 3'-end of primer
-   i dimers inside primer j".
+4. the epilogue (first occurrence, d2, trigger gather) runs on the device,
+   and only the fired (target, end) pairs reach the host, which ORs them
+   into the directional matrix hit[i, j] = "some 3'-end of primer i dimers
+   inside primer j".
 
-``dimer_hit_matrix`` runs one pass per end length and pattern batch;
-``dimer_hit_matrix_fused`` one pass per (target, end) bucket over all end
-lengths at once.  Both agree verdict for verdict with the host search
+``dimer_hit_matrix`` runs one match-count pass per end length and pattern
+batch, its epilogue as torch ops; ``dimer_hit_matrix_fused`` one pass per
+(target, end) bucket over all end lengths at once, ``_fused_kernel``: the
+CUDA kernel ``csrc/dimer_fired.cu`` for CUDA tensors (counts, first
+occurrence and verdict in one thread a pair, no [T, O, E] tensor), its
+plain version ``_fused_kernel_reference`` (match counts + torch epilogue)
+for CPU tensors.  Both agree verdict for verdict with the host search
 ``verify_against_host``.  The production path of the pipeline stays the
 host index of validate/findimer.py; this module is the device formulation.
 """
@@ -33,6 +37,10 @@ from ..thermo import exact as thermo
 from ..utils import iupac
 from ..utils import link as linkmod
 from . import mismatch_scan as ms
+
+# launches of the dimer_fired kernel in this process (never of its plain
+# version)
+DIMER_FIRED_LAUNCHES = 0
 
 
 def expanded_ends(primer, min_len=5, max_len=None, include_full=True):
@@ -167,16 +175,11 @@ def dimer_hit_matrix(primers, threshold=3.96, linear=False, min_len=5,
     return hit
 
 
-def _fused_kernel(masks, lens, planes, lp, z, ln_vec, shift_vec, trig):
-    """One uniform-shape pass over ALL end lengths -> fired bool [T, E].
-
-    Patterns are left-padded with zero columns to a common length ``lp``
-    (zero columns add 0 to the count, so a count equal to the end's true
-    length is still a full match); targets are left-padded by ``z`` = lp -
-    min_len blank positions so every real offset stays reachable for every
-    pattern shift: real_offset = o + shift - z (shift = lp - len(end)).
-    """
-    counts = ms.match_counts_kernel(masks, planes, plen=lp)   # [T, O, E]
+def _fused_kernel_reference(masks, lens, planes, lp, z, ln_vec, shift_vec,
+                            trig):
+    """Plain PyTorch version of the dimer_fired kernel: the plain match
+    counts [T, O, E] and the verdict epilogue as torch ops."""
+    counts = ms.match_counts_reference(masks, planes, plen=lp)  # [T, O, E]
     o = torch.arange(counts.shape[1], device=counts.device)[None, :, None]
     real_o = o + (shift_vec - z)[None, None, :]                # [1, O, E]
     ok = counts >= ln_vec[None, None, :]
@@ -185,6 +188,63 @@ def _fused_kernel(masks, lens, planes, lp, z, ln_vec, shift_vec, trig):
     # d2 = len - ln - (first + shift - z)
     d2_offset = lens[:, None] - (ln_vec + shift_vec - z)[None, :]
     return _fired(ok, d2_offset, trig)
+
+
+def _fused_kernel(masks, lens, planes, lp, z, ln_vec, shift_vec, trig):
+    """One uniform-shape pass over ALL end lengths -> fired bool [T, E].
+
+    Patterns are left-padded with zero columns to a common length ``lp``
+    (zero columns add 0 to the count, so a count equal to the end's true
+    length is still a full match); targets are left-padded by ``z`` = lp -
+    min_len blank positions so every real offset stays reachable for every
+    pattern shift: real_offset = o + shift - z (shift = lp - len(end)).
+
+    masks uint8 [T, L], lens int64 [T], planes int64 [E, 4], ln_vec and
+    shift_vec int64 [E], trig bool [E, W].  CUDA tensors launch the CUDA
+    kernel ``csrc/dimer_fired.cu`` (or raise); CPU tensors take the plain
+    version.
+    """
+    global DIMER_FIRED_LAUNCHES
+    dev = masks.device
+    if dev.type == "cpu":
+        return _fused_kernel_reference(masks, lens, planes, lp, z, ln_vec,
+                                       shift_vec, trig)
+    ms._check_inputs("dimer_fired", dev, (
+        ("masks", masks, torch.uint8, 2), ("lens", lens, torch.int64, 1),
+        ("planes", planes, torch.int64, 2),
+        ("ln_vec", ln_vec, torch.int64, 1),
+        ("shift_vec", shift_vec, torch.int64, 1),
+        ("trig", trig, torch.bool, 2)))
+    n_t, length = masks.shape
+    n_e, width = trig.shape
+    if tuple(lens.shape) != (n_t,) or tuple(planes.shape) != (n_e, 4) \
+            or tuple(ln_vec.shape) != (n_e,) \
+            or tuple(shift_vec.shape) != (n_e,):
+        raise ValueError(
+            "dimer_fired: lens must be [T], planes [E, 4], ln_vec and "
+            "shift_vec [E] for masks [T, L] = %s and trig [E, W] = %s; got "
+            "%s, %s, %s, %s" % (tuple(masks.shape), tuple(trig.shape),
+                                tuple(lens.shape), tuple(planes.shape),
+                                tuple(ln_vec.shape), tuple(shift_vec.shape)))
+    if not 1 <= lp <= ms.MAX_COUNT_PLEN or width < 1:
+        raise ValueError("dimer_fired: lp must be in 1..%d and trig have a "
+                         "column, got lp %d, W %d"
+                         % (ms.MAX_COUNT_PLEN, lp, width))
+    from . import _cuda
+    lib = _cuda.load("dimer_fired")
+    if dev.type != "cuda":
+        raise ValueError("dimer_fired: unsupported device %s" % dev)
+    fired = torch.empty((n_t, n_e), dtype=torch.bool, device=dev)
+    if fired.numel() == 0:
+        return fired
+    with torch.cuda.device(dev):
+        ms._launch(lib, "dimer_fired",
+                   masks.data_ptr(), lens.data_ptr(), planes.data_ptr(),
+                   ln_vec.data_ptr(), shift_vec.data_ptr(), trig.data_ptr(),
+                   fired.data_ptr(), n_t, length, n_e, width, int(lp),
+                   int(z), torch.cuda.current_stream(dev).cuda_stream)
+    DIMER_FIRED_LAUNCHES += 1
+    return fired
 
 
 def fused_layout(primers, threshold=3.96, linear=False, min_len=5,
@@ -239,7 +299,7 @@ def dimer_hit_matrix_fused(primers, threshold=3.96, linear=False, min_len=5,
     if lp > ms.MAX_COUNT_PLEN:
         raise ValueError(
             "dimer_hit_matrix_fused: ends pad to %d nt, above the %d of the "
-            "match-count kernel; pass end_max_len" % (lp, ms.MAX_COUNT_PLEN))
+            "dimer_fired kernel; pass end_max_len" % (lp, ms.MAX_COUNT_PLEN))
     masks = torch.from_numpy(lay["masks"]).to(dev)
     lens = torch.from_numpy(lay["lengths"]).to(dev).long()
     planes = ms.pattern_planes(lay["p1h"], device=dev)

@@ -15,8 +15,13 @@ reference's MD-tag trailing-run filter).  Hits come back as int8 codes
   ``csrc/hit_codes.cu`` for CUDA tensors; for CPU tensors it runs its plain
   PyTorch version ``hit_codes_reference`` (the conv formulation of the JAX
   package's ``hit_codes_conv``).
-* ``find_hits`` / ``find_hits_packed`` / ``find_hits_batched`` are the
-  window-length mask and the sparse compaction around it, in torch ops.
+* ``find_hits`` launches ``csrc/find_hits.cu`` for CUDA tensors: the hit
+  list (ascending flat indices, n_hits, mismatches) straight from the
+  tensor-core window product, with the window-length mask and no codes
+  tensor.  For CPU tensors it runs its plain version ``find_hits_reference``
+  (``hit_codes_reference`` + ``find_hits_from_codes``, the JAX package's
+  two-level compaction in torch ops).  ``find_hits_packed`` /
+  ``find_hits_batched`` go through it.
 * ``match_counts`` (the JAX package's ``match_counts_conv`` /
   ``match_counts_pallas``) launches ``csrc/match_counts.cu``: exact match
   counts with no purity rule, the correlation under ``ops/dimer.py``.
@@ -41,6 +46,7 @@ from ..utils import link as linkmod
 # launches of each CUDA kernel in this process (never of its plain
 # version): a run reads them to show that its path went through the kernels
 HIT_CODES_LAUNCHES = 0
+FIND_HITS_LAUNCHES = 0
 MATCH_COUNTS_LAUNCHES = 0
 HIT_WINDOW_BITMAP_LAUNCHES = 0
 
@@ -242,11 +248,17 @@ def hit_codes(target_masks, planes, suffix_planes, *, plen, mm, term):
 
 
 def _check_scan_inputs(fn, target_masks, planes, suffix_planes, plen):
-    """The CUDA-side checks shared by the hit-code and bitmap wrappers ->
-    (N, L, P)."""
+    """The CUDA-side checks shared by the hit-code, find_hits and bitmap
+    wrappers -> (N, L, P)."""
+    if target_masks.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s"
+                         % (fn, target_masks.device))
+    return _scan_shapes(fn, target_masks, planes, suffix_planes, plen)
+
+
+def _scan_shapes(fn, target_masks, planes, suffix_planes, plen):
+    """``_check_scan_inputs`` but for the device type -> (N, L, P)."""
     dev = target_masks.device
-    if dev.type != "cuda":
-        raise ValueError("%s: unsupported device %s" % (fn, dev))
     _check_inputs(fn, dev, (("target_masks", target_masks, torch.uint8, 2),
                             ("planes", planes, torch.int64, 2),
                             ("suffix_planes", suffix_planes, torch.int64, 2)))
@@ -540,15 +552,68 @@ def find_hits_from_codes(codes, lengths, *, plen, max_hits):
     return idx, n_hits, mism
 
 
+def find_hits_reference(target_masks, lengths, planes, suffix_planes, *,
+                        plen, mm=1, term=4, max_hits=1 << 18):
+    """Plain PyTorch version of the find_hits kernels: the plain hit codes,
+    then the window-length mask and the two-level compaction."""
+    codes = hit_codes_reference(target_masks, planes, suffix_planes,
+                                plen=plen, mm=mm, term=term)
+    return find_hits_from_codes(codes, lengths, plen=plen, max_hits=max_hits)
+
+
 def find_hits(target_masks, lengths, planes, suffix_planes, *, plen, mm=1,
               term=4, max_hits=1 << 18):
-    """Sparse scan of uint8 [N, L] target masks: -> (hit_idx [max_hits],
-    n_hits, mismatches [max_hits]), the contract of the JAX package's
-    find_hits (flat index n * O * P + o * P + p, ascending, -1 padding, the
-    first max_hits hits), in int64."""
-    codes = hit_codes(target_masks, planes, suffix_planes, plen=plen, mm=mm,
-                      term=term)
-    return find_hits_from_codes(codes, lengths, plen=plen, max_hits=max_hits)
+    """Sparse scan of uint8 [N, L] target masks with lengths [N] (int32 or
+    int64): -> (hit_idx [max_hits], n_hits, mismatches [max_hits]), the
+    contract of the JAX package's find_hits (flat index n * O * P + o * P +
+    p, ascending, -1 padding, the first max_hits hits), in int64.
+
+    CUDA tensors launch the kernels of ``csrc/find_hits.cu`` (or raise):
+    per-block hit counts from the tensor-core window product, their
+    offsets, then each block's hits below max_hits written in order and
+    the padding, with no [N, O, P] codes tensor.  CPU tensors take the
+    plain version."""
+    global FIND_HITS_LAUNCHES
+    dev = target_masks.device
+    if dev.type == "cpu":
+        return find_hits_reference(target_masks, lengths, planes,
+                                   suffix_planes, plen=plen, mm=mm,
+                                   term=term, max_hits=max_hits)
+    n, length, p = _scan_shapes("find_hits", target_masks, planes,
+                                suffix_planes, plen)
+    if lengths.device != dev or lengths.dtype not in (torch.int32,
+                                                      torch.int64) \
+            or tuple(lengths.shape) != (n,) or not lengths.is_contiguous():
+        raise ValueError(
+            "find_hits: lengths must be a contiguous int32 or int64 [%d] "
+            "tensor on %s, got %s %s on %s" % (
+                n, dev, lengths.dtype, tuple(lengths.shape), lengths.device))
+    if max_hits < 0:
+        raise ValueError("find_hits: max_hits must be >= 0, got %d"
+                         % max_hits)
+    from . import _cuda
+    lib = _cuda.load("find_hits")
+    if dev.type != "cuda":
+        raise ValueError("find_hits: unsupported device %s" % dev)
+    hit_idx = torch.empty(max_hits, dtype=torch.int64, device=dev)
+    mism = torch.empty(max_hits, dtype=torch.int64, device=dev)
+    n_hits = torch.empty((), dtype=torch.int64, device=dev)
+    # a count and an offset a block; a block is a tile of at least 16
+    # windows of one row
+    blocks = max(n * -(-max(length - plen + 1, 0) // 16), 1)
+    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
+    offsets = torch.empty(blocks, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _launch(lib, "find_hits", target_masks.data_ptr(),
+                lengths.data_ptr(), int(lengths.dtype == torch.int64),
+                planes.data_ptr(), suffix_planes.data_ptr(),
+                counts.data_ptr(), offsets.data_ptr(), blocks,
+                n_hits.data_ptr(),
+                hit_idx.data_ptr(), mism.data_ptr(), n, length, p, int(plen),
+                int(mm), int(term), int(max_hits),
+                torch.cuda.current_stream(dev).cuda_stream)
+    FIND_HITS_LAUNCHES += 1
+    return hit_idx, n_hits, mism
 
 
 def find_hits_packed(target_masks, lengths, planes, suffix_planes, *, plen,

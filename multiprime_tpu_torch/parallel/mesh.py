@@ -291,8 +291,8 @@ def find_hits_sharded(mesh, targets, lengths, primers_1h, suffix_1h, *,
                       want_mism=False):
     """Multi-device sparse scan.  targets: [N, L] uint8 IUPAC masks (or an
     [N, L, 4] one-hot) with N divisible by the mesh size; primers broadcast.
-    Each shard runs find_hits_packed (the hit-code kernel and the two-level
-    compaction) on its own device.
+    Each shard runs find_hits_packed (the find_hits kernels) on its own
+    device.
 
     -> int64 array [n_shards, packed length] (find_hits_packed layout);
     decode shard i with global row offset i * (N // n_shards).

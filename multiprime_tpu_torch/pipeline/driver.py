@@ -401,8 +401,9 @@ class Pipeline:
 
     def _backends(self):
         """Which engines actually served this run: the torch device, the
-        clusters each Stage-A and align backend served, the scan backend
-        and the launch counts of the hit-code and DP kernels."""
+        clusters each Stage-A and align backend served, the scan backend,
+        its device batches and the launch counts of the scan and DP
+        kernels."""
         from .. import native
         from ..ops import mismatch_scan as ms
         from ..utils import link as linkmod
@@ -420,6 +421,8 @@ class Pipeline:
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
         info["hit_codes_launches"] = ms.HIT_CODES_LAUNCHES
+        info["find_hits_launches"] = ms.FIND_HITS_LAUNCHES
+        info["scan_device_batches"] = vscan.DEVICE_BATCHES
         for key, n in self.kernel_launches.items():
             info[key + "_launches"] = n
         return info

@@ -109,7 +109,7 @@ def mark_device_warm():
     _DEVICE_WARM = True
 
 
-def device_startup_s(kernels=("hit_codes",)):
+def device_startup_s(kernels=("find_hits",)):
     """Expected one-time cost of the first device use in this process: a
     CUDA context while none is initialised, and each of ``kernels`` not
     loaded yet (built first when its library is missing or stale).  Zero

@@ -121,7 +121,7 @@ def test_device_startup_charges_the_card(monkeypatch):
     monkeypatch.setattr(_cuda, "_stale", lambda name: False)
     assert tlink.device_startup_s() == r["cuda_init_s"] + r["kernel_load_s"]
     monkeypatch.setattr(tlink.torch.cuda, "is_initialized", lambda: True)
-    monkeypatch.setattr(_cuda, "_libs", {"hit_codes": object()})
+    monkeypatch.setattr(_cuda, "_libs", {"find_hits": object()})
     assert tlink.device_startup_s() == 0.0
     monkeypatch.setattr(tlink.torch.cuda, "is_initialized", lambda: False)
     tlink.mark_device_warm()

@@ -135,6 +135,96 @@ def test_find_hits_and_scan_on_card(cuda):
     assert len(dev_hits) > 1 << 17 and dev_hits == host_hits
 
 
+def find_hits_equal_plain(dev, masks, lens, p1h, s1h, mm, term, max_hits):
+    """find_hits (the kernels of csrc/find_hits.cu, one launch a call)
+    equal to find_hits_reference on the card, with int32 and int64
+    lengths -> n_hits."""
+    tm = torch.from_numpy(masks).to(dev)
+    planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
+    kw = dict(plen=p1h.shape[1], mm=mm, term=term, max_hits=max_hits)
+    for dtype in (torch.int32, torch.int64):
+        tl = torch.from_numpy(lens).to(dev, dtype)
+        before = ms.FIND_HITS_LAUNCHES
+        got = ms.find_hits(tm, tl, planes, sfx, **kw)
+        assert ms.FIND_HITS_LAUNCHES == before + 1
+        want = ms.find_hits_reference(tm, tl, planes, sfx, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int64 and torch.equal(g, w), (
+                kw, masks.shape, dtype, int(w.reshape(-1)[0]))
+    return int(want[1])
+
+
+@pytest.mark.parametrize("plen", EDGE_PLENS)
+def test_find_hits_kernel_equals_plain_on_edge_grid(cuda, plen):
+    """Phase 2's edge grid with zero-length padding rows between and after
+    the real ones, and max_hits below, at and far above the hits."""
+    rng = np.random.default_rng(3000 + plen)
+    for i, (mm, term, n_pat, lo, hi) in enumerate(edge_grid(plen)):
+        masks, lens, p1h, s1h = edge_inputs(rng, plen, term, n_pat, lo, hi)
+        pad = np.zeros((3, masks.shape[1]), np.uint8)
+        masks = np.concatenate([masks[:1], pad[:1], masks[1:], pad])
+        lens = np.concatenate([lens[:1], [0], lens[1:], [0, 0, 0]]).astype(
+            np.int32)
+        find_hits_equal_plain(cuda, masks, lens, p1h, s1h, mm, term,
+                              (7, 1 << 14, 1, 0)[i % 4])
+
+
+@pytest.mark.parametrize("case", ["poly_a", "all_hit", "wide_rows"])
+def test_find_hits_kernel_dense_blocks_equal_plain(cuda, case):
+    """Blocks with more hits than the kernel's 1,024-entry list: 64-window
+    tiles of poly-A rows with 1,152 hits (whole-row rounds), rows of 1,500
+    hits each (pattern slices of one row), and max_hits inside a block."""
+    rng = np.random.default_rng(77)
+    lut = np.array(list("ACGT"))
+    if case == "poly_a":
+        seqs = ["A" * 1000] * 6 + ["".join(rng.choice(lut, size=900))]
+        pats = ["A" * 18] + ["A" * k + "C" + "A" * (17 - k)
+                             for k in range(18)]
+        mm, term = 1, 1
+    else:
+        n_rows, n_pat = (3, 1500) if case == "all_hit" else (40, 40)
+        seqs = ["".join(rng.choice(lut, size=int(rng.integers(60, 120))))
+                for _ in range(n_rows)]
+        pats = ["".join(rng.choice(lut, size=18)) for _ in range(n_pat)]
+        mm, term = 18, 0
+    p1h = ms.encode_primers(pats)
+    s1h = p1h.copy()
+    if term:
+        s1h[:, :-term] = 0
+    else:
+        s1h[:] = 0
+    pad = -len(pats) % 8
+    z = np.zeros((pad, 18, 4), np.uint8)
+    p1h, s1h = np.concatenate([p1h, z]), np.concatenate([s1h, z])
+    masks, lens = ms.encode_target_masks(seqs)
+    counts = [find_hits_equal_plain(cuda, masks, lens, p1h, s1h, mm, term,
+                                    max_hits)
+              for max_hits in (100, 5000, 1 << 16, 1 << 20)]
+    assert counts[0] > 1 << 16 or case == "wide_rows"
+    assert len(set(counts)) == 1 and counts[0] > 5000
+
+
+def test_find_hits_wrapper_refuses_bad_inputs(cuda):
+    masks = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
+    lens = torch.zeros(4, dtype=torch.int32, device=cuda)
+    planes = torch.zeros((8, 4), dtype=torch.int64, device=cuda)
+    kw = dict(plen=18, mm=1, term=1, max_hits=16)
+    with pytest.raises(ValueError, match="target_masks"):
+        ms.find_hits(masks.to(torch.int32), lens, planes, planes, **kw)
+    with pytest.raises(ValueError, match="target_masks"):
+        ms.find_hits(masks[:, ::2], lens, planes, planes, **kw)
+    with pytest.raises(ValueError, match="planes"):
+        ms.find_hits(masks, lens, planes.cpu(), planes, **kw)
+    for bad in (lens.float(), lens.cpu(), lens[:3], lens[None]):
+        with pytest.raises(ValueError, match="lengths"):
+            ms.find_hits(masks, bad, planes, planes, **kw)
+    with pytest.raises(ValueError, match="plen"):
+        ms.find_hits(masks, lens, planes, planes, **dict(kw, plen=64))
+    with pytest.raises(ValueError, match="max_hits"):
+        ms.find_hits(masks, lens, planes, planes, **dict(kw, max_hits=-1))
+
+
 def _multi_base_masks(rng, n, length):
     """Random 4-bit masks: pure, ambiguous (several bits) and empty."""
     return rng.integers(0, 16, size=(n, length)).astype(np.uint8)
@@ -255,12 +345,94 @@ def test_dimer_matrices_on_card(cuda):
     primers[7] = primers[7][:4] + "N" + primers[7][5:]
     host = dimer.verify_against_host(primers)
     before = ms.MATCH_COUNTS_LAUNCHES
+    fired = dimer.DIMER_FIRED_LAUNCHES
     fused = dimer.dimer_hit_matrix_fused(primers, device=cuda)
-    assert ms.MATCH_COUNTS_LAUNCHES == before + 1
+    assert dimer.DIMER_FIRED_LAUNCHES == fired + 1
+    assert ms.MATCH_COUNTS_LAUNCHES == before
     unfused = dimer.dimer_hit_matrix(primers, device=cuda)
-    assert ms.MATCH_COUNTS_LAUNCHES > before + 1
+    assert ms.MATCH_COUNTS_LAUNCHES > before
     assert fused[1, 2]
     assert np.array_equal(fused, host) and np.array_equal(unfused, host)
+
+
+def dimer_edge_inputs(rng, lp, n_t=37, n_e=300, width=None):
+    """Fused-pass inputs on the card: targets of 0-40 bases left-padded by
+    z = lp - 5 (every 7th a zero-length padding row), ends of 5..lp bases
+    cut from the first window of a target, its last, or between (a few
+    random), trigger rows of W columns with 0 and W - 1 set, so that d2
+    clips at both ends."""
+    z = lp - 5
+    lut = np.array(list("ACGT"))
+    seqs = [("".join(rng.choice(lut, size=int(rng.integers(5, 41))))
+             if t % 7 else "") for t in range(n_t)]
+    lns = rng.integers(5, min(lp, 40) + 1, size=n_e)
+    lns[0] = 5
+    ends = []
+    for e, ln in enumerate(lns):
+        s = seqs[int(rng.integers(0, n_t))]
+        if len(s) >= ln and e % 4:
+            at = (0, len(s) - ln, int(rng.integers(0, len(s) - ln + 1)))[
+                e % 3]
+            ends.append(s[at:at + ln])
+        else:
+            ends.append("".join(rng.choice(lut, size=int(ln))))
+    t_len = z + 40
+    t_len += -t_len % 16
+    masks = np.zeros((n_t, t_len), np.uint8)
+    codes, lens = ms.encode_target_codes(seqs)
+    masks[:, z:z + codes.shape[1]] = codes
+    p1h = np.zeros((n_e, lp, 4), np.uint8)
+    for k, e in enumerate(ends):
+        p1h[k, lp - len(e):] = ms.encode_primers([e])[0]
+    width = width or int(rng.integers(3, 30))
+    trig = rng.random((n_e, width)) < 0.5
+    trig[:, 0] = True
+    trig[1::2, -1] = True
+    return (masks, lens.astype(np.int64), p1h, lns.astype(np.int64),
+            (lp - lns).astype(np.int64), z, trig)
+
+
+def dimer_fired_equal_plain(dev, masks, lens, p1h, lns, shifts, z, trig):
+    """_fused_kernel (the dimer_fired kernel, one launch) equal to
+    _fused_kernel_reference on the card -> fired pairs."""
+    args = [torch.from_numpy(masks).to(dev), torch.from_numpy(lens).to(dev),
+            ms.pattern_planes(p1h, device=dev), p1h.shape[1], z,
+            torch.from_numpy(lns).to(dev), torch.from_numpy(shifts).to(dev),
+            torch.from_numpy(trig).to(dev)]
+    before = dimer.DIMER_FIRED_LAUNCHES
+    got = dimer._fused_kernel(*args)
+    assert dimer.DIMER_FIRED_LAUNCHES == before + 1
+    want = dimer._fused_kernel_reference(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got, want), (
+        masks.shape, p1h.shape, trig.shape)
+    return int(want.sum())
+
+
+@pytest.mark.parametrize("lp", [8, 24, 40, 64])
+def test_dimer_fired_kernel_equals_plain(cuda, lp):
+    rng = np.random.default_rng(4000 + lp)
+    fired = [dimer_fired_equal_plain(cuda, *dimer_edge_inputs(rng, lp,
+                                                              width=w))
+             for w in (None, 1, 2, 65)]
+    assert min(fired) > 0
+
+
+def test_dimer_fired_wrapper_refuses_bad_inputs(cuda):
+    masks = torch.zeros((6, 48), dtype=torch.uint8, device=cuda)
+    lens = torch.zeros(6, dtype=torch.int64, device=cuda)
+    planes = torch.zeros((9, 4), dtype=torch.int64, device=cuda)
+    vec = torch.zeros(9, dtype=torch.int64, device=cuda)
+    trig = torch.zeros((9, 25), dtype=torch.bool, device=cuda)
+    for what, args in (
+            ("masks", (masks.to(torch.int32), lens, planes, vec, trig, 24)),
+            ("lens", (masks, lens.cpu(), planes, vec, trig, 24)),
+            ("trig", (masks, lens, planes, vec, trig.to(torch.uint8), 24)),
+            ("lens must be", (masks, lens[:5], planes, vec, trig, 24)),
+            ("lp must be", (masks, lens, planes, vec, trig, 65))):
+        m, ln, q, v, tr, lp = args
+        with pytest.raises(ValueError, match=what):
+            dimer._fused_kernel(m, ln, q, lp, 19, v, v, tr)
 
 
 # ---------------------------------------------------------------------------
@@ -985,20 +1157,21 @@ def test_find_hits_sharded_on_a_mesh_of_one_card(cuda):
     """A 2-shard Mesh of cuda:0 (one card twice): find_hits_sharded's
     blocks, decoded with their row offsets, equal find_hits_packed of the
     whole batch on the card and the plain version's compaction on the CPU,
-    each shard through the hit-code kernel; the two-level compaction of
-    more hits than max_hits equals the plain one; asking make_mesh for
-    more GPUs than are present raises."""
+    each shard one launch of the find_hits kernels; the two-level
+    compaction of more hits than max_hits on the card equals the plain
+    one on the CPU; asking make_mesh for more GPUs than are present
+    raises."""
     from multiprime_tpu_torch.parallel import mesh as pmesh
     rng = np.random.default_rng(61)
     masks, lens, p1h, s1h = _inputs(rng, 24, 200, 900, 40, 18, 2,
                                     letters="ACGTACGTACGTN")
     plen, n_out, p = 18, masks.shape[1] - 17, p1h.shape[0]
     mesh = pmesh.Mesh([["cuda:0", "cuda:0"]])
-    before = ms.HIT_CODES_LAUNCHES
+    before = ms.FIND_HITS_LAUNCHES
     blocks = pmesh.find_hits_sharded(mesh, masks, lens, p1h, s1h, mm=3,
                                      term=2, max_hits_per_shard=8192,
                                      want_mism=True)
-    assert ms.HIT_CODES_LAUNCHES == before + 2
+    assert ms.FIND_HITS_LAUNCHES == before + 2
     got = []
     for si, blk in enumerate(blocks):
         seq, pos, pat, mism, n = ms.decode_packed(blk, n_out, p, 8192)
