@@ -1,0 +1,8 @@
+"""The align stage's seconds a completed job: pipeline_metrics.json's
+timings_s["align"], summed over the pool's workers (busy time, not wall)."""
+
+
+def read(run):
+    done = [r["timings_s"]["align"] for r in run.completed()
+            if "align" in r.get("timings_s", {})]
+    return sum(done) / len(done) if done else None
