@@ -799,10 +799,9 @@ def phase_run(args, report, work):
     launches = int(backends.get("find_hits_launches", 0))
     batches = int(backends.get("scan_device_batches", -1))
     say("phase 4 run: %.1f s wall, nproc=%d, scan_backend=%s, device=%s, "
-        "find_hits launches=%d for %d device batches of its scan, hit_codes "
-        "launches=%d" % (wall, nproc, backends.get("scan_backend"),
-                         backends.get("device_name"), launches, batches,
-                         backends.get("hit_codes_launches", -1)))
+        "find_hits launches=%d for %d device batches of its scan"
+        % (wall, nproc, backends.get("scan_backend"),
+           backends.get("device_name"), launches, batches))
     say("phase 4 stages (s): " + json.dumps(metrics["timings_s"]))
     if launches <= 0 or launches != batches \
             or backends.get("scan_backend") != "device":

@@ -50,6 +50,7 @@ import torch
 
 from ..ops.mismatch_scan import _check_inputs, _launch
 from ..utils import link as linkmod
+from ..utils import trace
 from .centerstar import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
 
 # launches of each CUDA kernel in this process (never of its plain
@@ -287,18 +288,31 @@ def align_ops_batch_device(c, member_codes, member_block=512,
     uint8 code matrix [M, S] (0=M, 1=D, 2=I, 3=pad at the end) consumed by
     ``centerstar._merge_rows_vec`` without per-op Python lists.
     """
+    with trace.span("align.dp"):
+        trace.count("members", len(member_codes))
+        return _align_ops_batch(c, member_codes, member_block, as_codes,
+                                device)
+
+
+def _align_ops_batch(c, member_codes, member_block, as_codes, device):
     dev = linkmod.resolve_device(device)
+    copies = trace.ON and dev.type != "cpu"
     c = np.asarray(c, np.int64)
     la = len(c)
     out = [None] * len(member_codes)
     parts = []
     la_pad = _round_up(max(la, 1), 256)
     c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
+    if copies:
+        trace.count("h2d_bytes", 4 * la)
     for lo in range(0, len(member_codes), member_block):
         part = member_codes[lo:lo + member_block]
         bmat, lbs_dev = gotoh_block_inputs(part, device=dev)
         lb = bmat.shape[1]
         ops_rev = gotoh_block(c_dev, bmat, lbs_dev).cpu().numpy()
+        if copies:
+            trace.count("h2d_bytes", 4 * (bmat.numel() + len(part)))
+            trace.count("d2h_bytes", ops_rev.nbytes)
         if as_codes:
             # reverse + left-shift out the pad prefix, all in NumPy; the
             # width is the JAX trace's, la_pad + lb_pad

@@ -40,6 +40,8 @@ device Stage A and the coverage scan, with the same outputs as one device.
 import importlib
 import sys
 
+from ..utils import trace
+
 # subcommand -> (module of this package, function); module None is this one
 COMMANDS = {
     "run": (None, "_run"),
@@ -82,7 +84,10 @@ def main(argv=None):
         fn = globals()[name]
     else:
         fn = getattr(importlib.import_module("." + module, __package__), name)
-    return fn(rest) or 0
+    # one request a command: its spans are recorded only under an active
+    # torch.profiler session (utils/trace.py)
+    with trace.request(cmd):
+        return fn(rest) or 0
 
 
 def _device_flag(p, default="cuda"):
@@ -136,9 +141,11 @@ def _run(argv):
     p.add_argument("--profile", metavar="DIR",
                    help="capture a torch.profiler trace of the whole run "
                         "(CPU, and CUDA on a GPU; TensorBoard trace files "
-                        "under DIR) beside the per-stage wall-clock timings "
-                        "in pipeline_metrics.json; the run takes one "
-                        "process")
+                        "under DIR) and the program's spans, the pool's "
+                        "workers' included (DIR/spans.json, a Chrome "
+                        "trace), beside the per-stage wall-clock timings "
+                        "in pipeline_metrics.json; without --nproc the run "
+                        "takes one process")
     _device_flag(p, default=None)
     args = p.parse_args(argv)
     # only explicit flags override the config file
@@ -163,15 +170,27 @@ def _run(argv):
     else:
         pipe, log = run_pipeline(args.config, **overrides)
     for name, status, dt in log:
+        if name in _SUMMED:
+            name += " (summed over workers)"
         print("%-20s %-8s %ss" % (name, status, dt))
     return 0
+
+
+# stages whose printed seconds are busy time summed over the fan-out's
+# workers, not wall
+_SUMMED = ("align", "design", "pair")
 
 
 def _profiled(trace_dir, device, config, overrides):
     """run_pipeline inside torch.profiler: CPU activities, plus CUDA when
     the run's device is a GPU; the trace is written under trace_dir by
-    tensorboard_trace_handler.  The run takes one process (nproc = 1): the
-    profiler does not follow the cluster pool's workers."""
+    tensorboard_trace_handler, and the run's spans, its pool's workers'
+    included, as trace_dir/spans.json (utils/trace.py; the profiler itself
+    does not follow the workers).  Without an explicit --nproc the run
+    takes one process."""
+    import json
+    import os
+
     import torch
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 tensorboard_trace_handler)
@@ -182,12 +201,18 @@ def _profiled(trace_dir, device, config, overrides):
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    overrides = dict(overrides, nproc=1)
+    overrides.setdefault("nproc", 1)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(trace_dir)):
-        # one range over the whole run: its span is the run's wall
-        with record_function("run_pipeline"):
-            return run_pipeline(config, **overrides)
+        with trace.request("run"):
+            # one range over the whole run: its span is the run's wall
+            with record_function("run_pipeline"):
+                out = run_pipeline(config, **overrides)
+        request = trace.last_request()
+    os.makedirs(trace_dir, exist_ok=True)
+    with open(os.path.join(trace_dir, "spans.json"), "w") as f:
+        json.dump(trace.chrome(trace.spans(request)), f)
+    return out
 
 
 def _solve(argv):

@@ -34,7 +34,7 @@ import numpy as np
 
 from .. import native
 from ..thermo import exact as thermo
-from ..utils import iupac
+from ..utils import iupac, trace
 
 BASES = ("A", "C", "G", "T")
 _BASE2IDX = {"A": 0, "C": 1, "G": 2, "T": 3}
@@ -665,95 +665,107 @@ class DesignEngine:
         fastable = self.p.algo in ("v15", "v16", "v20")
         for b0 in range(0, len(positions), block):
             pos_block = positions[b0:b0 + block]
-            wins = extractor.windows(pos_block)      # [N, W, plen]
-            gap_blk = (wins == ord("-")).sum(axis=2)
-            imp_blk = _IMPURE_TABLE[wins].any(axis=2)
-            same_blk = (wins == wins[:1]).all(axis=(0, 2))
-            # batch the uniform-pure fast path's four per-window native
-            # calls (di/hairpin/dimer-candidates/Tm) into ONE call for the
-            # whole block's qualifying windows (singleton clusters are all
-            # qualifying windows)
-            pure_pre = {}
-            if fastable:
-                pure_wi = [wi for wi in range(wins.shape[1])
-                           if same_blk[wi] and gap_blk[0, wi] == 0
-                           and not imp_blk[0, wi]]
-                if pure_wi:
-                    rows0 = np.ascontiguousarray(wins[0, pure_wi, :])
-                    # prefer the fully-native gate batch: the self-dimer
-                    # verdict (Loss >= 3 via a Python-built exact table +
-                    # dG < -5 at d2 == 0) resolves in the same call, so no
-                    # candidate streams or per-end Python float replay
-                    # remain (flags bit 3 = reject).  Fallback: the
-                    # candidate-stream batch + Python verdicts.
-                    from .pairing import _dg_tables
-                    batch2 = native.pure_window_filters2(
-                        rows0, self.p.hairpin_distance,
-                        _loss3_table(self.p.primer_length + 1,
-                                     self.p.algo in ("v15", "v16")),
-                        _dg_tables())
-                    if batch2 is not None:
-                        flags, tms, gcs = batch2
-                        # tight block assembly: the fast-path checks that
-                        # remain after the native gates are constants per
-                        # cluster (gap gate at 0 gaps, cBit/tBit vs the
-                        # entropy threshold) plus a vectorised 4-base
-                        # presence test — build the WindowResults here and
-                        # let the wi loop below just pick them up (same
-                        # emission order).  Semantics identical to
-                        # _design_window's uniform-pure branch (fuzz:
-                        # tests/test_design_golden.py).
-                        done = {}
-                        if round(0 / n, 2) >= (1 - self.p.coverage):
-                            done = {wi: None for wi in pure_wi}
-                        else:
-                            bits = self._uniform_bits
-                            if bits is None or bits[0] != n:
-                                bits = (n,) + thermo.shannon_pair(
-                                    [n], n, [], 0)
-                                self._uniform_bits = bits
-                            _, c_bit, t_bit = bits
-                            if t_bit > threshold:
-                                done = {wi: None for wi in pure_wi}
-                            else:
-                                has4 = ((rows0 == ord("A")).any(axis=1)
-                                        & (rows0 == ord("C")).any(axis=1)
-                                        & (rows0 == ord("G")).any(axis=1)
-                                        & (rows0 == ord("T")).any(axis=1))
-                                for bi, wi in enumerate(pure_wi):
-                                    done[wi] = None
-                                    if not has4[bi]:
-                                        continue
-                                    done[wi] = self._finalize_pure(
-                                        int(pos_block[wi]), c_bit, t_bit,
-                                        rows0[bi].tobytes().decode("ascii"),
-                                        n, (int(flags[bi]), float(tms[bi]),
-                                            int(gcs[bi]), None))
-                        pure_pre = done
-                    else:
-                        batch = native.pure_window_filters(
-                            rows0, self.p.hairpin_distance)
-                        if batch is not None:
-                            flags, tms, gcs, cands = batch
-                            pure_pre = {wi: (int(flags[bi]), float(tms[bi]),
-                                             int(gcs[bi]), cands[bi])
-                                        for bi, wi in enumerate(pure_wi)}
-            for wi, position in enumerate(pos_block):
-                if wi in pure_pre and not isinstance(pure_pre[wi], tuple):
-                    res = pure_pre[wi]          # assembled (or rejected)
-                else:
-                    res = self._design_window(int(position),
-                                              wins[:, wi, :],
-                                              seq_ids, n, threshold,
-                                              gates=(gap_blk[:, wi],
-                                                     imp_blk[:, wi],
-                                                     bool(same_blk[wi])),
-                                              pure_pre=pure_pre.get(wi))
-                if res is not None:
-                    results.append(res)
+            with trace.span("design.stage_a"):
+                wins = extractor.windows(pos_block)      # [N, W, plen]
+                gap_blk = (wins == ord("-")).sum(axis=2)
+                imp_blk = _IMPURE_TABLE[wins].any(axis=2)
+                same_blk = (wins == wins[:1]).all(axis=(0, 2))
+            with trace.span("design.stage_b"):
+                trace.count("windows", len(pos_block))
+                self._host_stage_b_block(pos_block, wins, gap_blk, imp_blk,
+                                         same_blk, seq_ids, n, threshold,
+                                         fastable, results)
             if progress:
                 progress(min(b0 + block, len(positions)), len(positions))
         return results
+
+    def _host_stage_b_block(self, pos_block, wins, gap_blk, imp_blk,
+                            same_blk, seq_ids, n, threshold, fastable,
+                            results):
+        """Stage B of one block of host windows, window by window, into
+        ``results``."""
+        # batch the uniform-pure fast path's four per-window native
+        # calls (di/hairpin/dimer-candidates/Tm) into ONE call for the
+        # whole block's qualifying windows (singleton clusters are all
+        # qualifying windows)
+        pure_pre = {}
+        if fastable:
+            pure_wi = [wi for wi in range(wins.shape[1])
+                       if same_blk[wi] and gap_blk[0, wi] == 0
+                       and not imp_blk[0, wi]]
+            if pure_wi:
+                rows0 = np.ascontiguousarray(wins[0, pure_wi, :])
+                # prefer the fully-native gate batch: the self-dimer
+                # verdict (Loss >= 3 via a Python-built exact table +
+                # dG < -5 at d2 == 0) resolves in the same call, so no
+                # candidate streams or per-end Python float replay
+                # remain (flags bit 3 = reject).  Fallback: the
+                # candidate-stream batch + Python verdicts.
+                from .pairing import _dg_tables
+                batch2 = native.pure_window_filters2(
+                    rows0, self.p.hairpin_distance,
+                    _loss3_table(self.p.primer_length + 1,
+                                 self.p.algo in ("v15", "v16")),
+                    _dg_tables())
+                if batch2 is not None:
+                    flags, tms, gcs = batch2
+                    # tight block assembly: the fast-path checks that
+                    # remain after the native gates are constants per
+                    # cluster (gap gate at 0 gaps, cBit/tBit vs the
+                    # entropy threshold) plus a vectorised 4-base
+                    # presence test — build the WindowResults here and
+                    # let the wi loop below just pick them up (same
+                    # emission order).  Semantics identical to
+                    # _design_window's uniform-pure branch (fuzz:
+                    # tests/test_design_golden.py).
+                    done = {}
+                    if round(0 / n, 2) >= (1 - self.p.coverage):
+                        done = {wi: None for wi in pure_wi}
+                    else:
+                        bits = self._uniform_bits
+                        if bits is None or bits[0] != n:
+                            bits = (n,) + thermo.shannon_pair(
+                                [n], n, [], 0)
+                            self._uniform_bits = bits
+                        _, c_bit, t_bit = bits
+                        if t_bit > threshold:
+                            done = {wi: None for wi in pure_wi}
+                        else:
+                            has4 = ((rows0 == ord("A")).any(axis=1)
+                                    & (rows0 == ord("C")).any(axis=1)
+                                    & (rows0 == ord("G")).any(axis=1)
+                                    & (rows0 == ord("T")).any(axis=1))
+                            for bi, wi in enumerate(pure_wi):
+                                done[wi] = None
+                                if not has4[bi]:
+                                    continue
+                                done[wi] = self._finalize_pure(
+                                    int(pos_block[wi]), c_bit, t_bit,
+                                    rows0[bi].tobytes().decode("ascii"),
+                                    n, (int(flags[bi]), float(tms[bi]),
+                                        int(gcs[bi]), None))
+                    pure_pre = done
+                else:
+                    batch = native.pure_window_filters(
+                        rows0, self.p.hairpin_distance)
+                    if batch is not None:
+                        flags, tms, gcs, cands = batch
+                        pure_pre = {wi: (int(flags[bi]), float(tms[bi]),
+                                         int(gcs[bi]), cands[bi])
+                                    for bi, wi in enumerate(pure_wi)}
+        for wi, position in enumerate(pos_block):
+            if wi in pure_pre and not isinstance(pure_pre[wi], tuple):
+                res = pure_pre[wi]          # assembled (or rejected)
+            else:
+                res = self._design_window(int(position),
+                                          wins[:, wi, :],
+                                          seq_ids, n, threshold,
+                                          gates=(gap_blk[:, wi],
+                                                 imp_blk[:, wi],
+                                                 bool(same_blk[wi])),
+                                          pure_pre=pure_pre.get(wi))
+            if res is not None:
+                results.append(res)
 
     def _design_device(self, chars, positions, seq_ids, n, threshold,
                        progress=None):
@@ -780,28 +792,43 @@ class DesignEngine:
             blocks = design_scan.design_stats_blocks(
                 masks, positions, plen=self.p.primer_length,
                 variation=self.p.variation, device=self.p.device)
-        for pos_block, stats in blocks:
-            win_chars = iupac._MASK_TO_ASCII[stats["win"] & 15]  # [N, W, plen]
-            gap_blk = (win_chars == ord("-")).sum(axis=2)
-            imp_blk = _IMPURE_TABLE[win_chars].any(axis=2)
-            same_blk = (win_chars == win_chars[:1]).all(axis=(0, 2))
-            for wi, position in enumerate(pos_block):
-                pre = (stats["freq"][wi].T.astype(np.int64),
-                       stats["nn"][wi].astype(np.int64),
-                       stats["viterbi"][wi].astype(np.int64))
-                res = self._design_window(int(position), win_chars[:, wi, :],
-                                          seq_ids, n, threshold, pre=pre,
-                                          gates=(gap_blk[:, wi],
-                                                 imp_blk[:, wi],
-                                                 bool(same_blk[wi])))
-                if res is not None:
-                    results.append(res)
+        blocks = iter(blocks)
+        while True:
+            # Stage A: the host's wait for the next block, copies included
+            with trace.span("design.stage_a"):
+                block = next(blocks, None)
+            if block is None:
+                break
+            pos_block, stats = block
+            with trace.span("design.stage_b"):
+                trace.count("windows", len(pos_block))
+                self._stage_b_block(pos_block, stats, seq_ids, n, threshold,
+                                    results)
             done += len(pos_block)
             if progress:
                 progress(done, len(positions))
         from ..utils import link as linkmod
         linkmod.mark_device_warm()
         return results
+
+    def _stage_b_block(self, pos_block, stats, seq_ids, n, threshold,
+                       results):
+        """Stage B of one block of device Stage-A stats, window by window,
+        into ``results``."""
+        win_chars = iupac._MASK_TO_ASCII[stats["win"] & 15]  # [N, W, plen]
+        gap_blk = (win_chars == ord("-")).sum(axis=2)
+        imp_blk = _IMPURE_TABLE[win_chars].any(axis=2)
+        same_blk = (win_chars == win_chars[:1]).all(axis=(0, 2))
+        for wi, position in enumerate(pos_block):
+            pre = (stats["freq"][wi].T.astype(np.int64),
+                   stats["nn"][wi].astype(np.int64),
+                   stats["viterbi"][wi].astype(np.int64))
+            res = self._design_window(int(position), win_chars[:, wi, :],
+                                      seq_ids, n, threshold, pre=pre,
+                                      gates=(gap_blk[:, wi], imp_blk[:, wi],
+                                             bool(same_blk[wi])))
+            if res is not None:
+                results.append(res)
 
     def _design_parallel(self, extractor, positions, seq_ids, n, threshold):
         import concurrent.futures as cf

@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import threading
 
+from ..utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -93,14 +95,28 @@ _PTR = ctypes.c_void_p             # pointers and the stream: never 32-bit
 _I64, _INT = ctypes.c_int64, ctypes.c_int
 
 
+def _timed(prefix, launch):
+    """A launcher as bound: the kernel straight, or while the trace
+    records (utils/trace.py), between two CUDA events on the stream its
+    last argument names, read by the innermost open span."""
+    def call(*args):
+        if not trace.ON:
+            return launch(*args)
+        return trace.launch(prefix, launch, args)
+    return call
+
+
 def _bind(lib, launchers):
     """Set the argument types of each ``<prefix>_launch`` of a library
     (``launchers``: prefix -> argument types; each returns a CUDA error
-    code) and of the ``<prefix>_error_string`` beside it."""
+    code, its last argument the stream) and of the
+    ``<prefix>_error_string`` beside it, and put the launcher under
+    ``_timed``."""
     for prefix, launch_args in launchers.items():
         launch = getattr(lib, prefix + "_launch")
         launch.restype = ctypes.c_int
         launch.argtypes = list(launch_args)
+        setattr(lib, prefix + "_launch", _timed(prefix, launch))
         err = getattr(lib, prefix + "_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
@@ -158,8 +174,10 @@ def load(name):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(_paths(name)[1])
-            _bind(lib, _LAUNCHERS[name])
+            with trace.span("cuda.load"):
+                trace.count("lib." + name)
+                build([name])
+                lib = ctypes.CDLL(_paths(name)[1])
+                _bind(lib, _LAUNCHERS[name])
             _libs[name] = lib
         return lib

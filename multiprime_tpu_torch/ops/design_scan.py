@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..utils import link as linkmod
+from ..utils import trace
 from .mismatch_scan import _check_inputs, _launch
 
 # launches of each Stage-A CUDA kernel in this process (never of its plain
@@ -436,9 +437,15 @@ def design_stats_blocks(masks, positions, *, plen=18, variation=1,
     """
     dev = linkmod.resolve_device(device)
     masks_d = _device_masks(np.ascontiguousarray(masks, dtype=np.int32), dev)
+    copies = trace.ON and dev.type != "cpu"
+    if copies:
+        trace.count("h2d_bytes", masks_d.numel() * masks_d.element_size())
     positions = np.asarray(positions, dtype=np.int64)
     rows = None if dev.type == "cpu" else stage_a_rows(masks_d)
     for b0 in range(0, len(positions), block):
         pos = positions[b0:b0 + block]
         out = _stats(masks_d, pos, plen, variation, with_win=True, rows=rows)
-        yield pos, {k: v.cpu().numpy() for k, v in out.items()}
+        stats = {k: v.cpu().numpy() for k, v in out.items()}
+        if copies:
+            trace.count("d2h_bytes", sum(a.nbytes for a in stats.values()))
+        yield pos, stats

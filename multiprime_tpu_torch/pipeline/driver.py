@@ -33,16 +33,20 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils import trace
 
-def _init_worker(n, mesh_spec=None):
+
+def _init_worker(n, mesh_spec=None, trace_state=None):
     # pool worker initializer: divide the machine's cores between cluster
     # workers so native threaded kernels (gotoh_ops_batch, refine_realign)
-    # and torch's CPU ops never oversubscribe W workers x all cores; and
+    # and torch's CPU ops never oversubscribe W workers x all cores; record
+    # spans for the parent's request while it records them; and
     # enter the parent's device mesh, which a spawned worker does not
     # inherit (else its device Stage A would run on one device)
     import torch
     os.environ["MPTPU_NATIVE_THREADS"] = str(n)
     torch.set_num_threads(n)
+    trace.adopt(trace_state)
     if mesh_spec is not None:
         from ..parallel import mesh as pmesh
         pmesh.use_mesh(pmesh.Mesh(mesh_spec)).__enter__()
@@ -215,6 +219,11 @@ class PipelineConfig:
         return cfg
 
 
+# whether this process, a worker of the fan-out's pool, has begun its
+# first cluster (_pooled_cluster)
+_WORKER_READY = False
+
+
 def _kernel_launches():
     """{kernel: launches} of the device DP and Stage-A kernels in this
     process so far (Stage A: its windows kernel, one a block)."""
@@ -272,9 +281,11 @@ class Pipeline:
         if outputs and self._done(*outputs):
             self.log.append((name, "cached", 0.0))
             return
-        t0 = time.time()
-        fn()
-        dt = time.time() - t0
+        t0 = time.perf_counter()
+        # "cluster" names each cluster's span of the fan-out
+        with trace.span("clustering" if name == "cluster" else name):
+            fn()
+        dt = time.perf_counter() - t0
         self.cfg.timings[name] = round(dt, 3)
         self._log_file(name, dt)
         self.log.append((name, "ran", round(dt, 2)))
@@ -388,7 +399,8 @@ class Pipeline:
                     pass
         else:
             self._aggregate_and_solve()
-        for name in ("align", "design", "pair", "solve", "pcr", "scan"):
+        for name in ("fanout", "align", "design", "pair", "solve", "pcr",
+                     "scan"):
             if name in cfg.timings:
                 self.log.append((name, "ran", round(cfg.timings[name], 2)))
         with open(self._p("pipeline_metrics.json"), "w") as f:
@@ -420,7 +432,6 @@ class Pipeline:
                 "align_served": self.served.get("align", {})}
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
-        info["hit_codes_launches"] = ms.HIT_CODES_LAUNCHES
         info["find_hits_launches"] = ms.FIND_HITS_LAUNCHES
         info["scan_device_batches"] = vscan.DEVICE_BATCHES
         for key, n in self.kernel_launches.items():
@@ -643,6 +654,32 @@ class Pipeline:
                              key=lambda n: -int(n.rsplit("_", 1)[1]))
             names = [n for j, n in enumerate(by_size) if j % cnt == idx]
         workers = min(cfg.nproc, len(names))
+        t0 = time.perf_counter()
+        with trace.span("fanout"):
+            trace.count("clusters", len(names))
+            trace.count("workers", max(workers, 1))
+            reports = self._fan_out(names, workers)
+            for rep in reports:
+                trace.merge(rep.pop("spans", ()))
+        # the fan-out's wall in this process (align, design and pair are
+        # each summed over the workers)
+        self.cfg.timings["fanout"] = round(time.perf_counter() - t0, 3)
+        for rep in reports:
+            for key in ("align", "design", "pair"):
+                if rep.get(key + "_s"):
+                    self.cfg.timings[key] = round(
+                        self.cfg.timings.get(key, 0) + rep[key + "_s"], 3)
+            for key, served in rep["served"].items():
+                count = self.served.setdefault(key, {})
+                count[served] = count.get(served, 0) + 1
+            for key, n in rep["kernel_launches"].items():
+                self.kernel_launches[key] += n
+            self.log.extend(rep["log"])
+
+    def _fan_out(self, names, workers):
+        """The clusters' reports, from a pool of ``workers`` processes in
+        LPT order, or in this process, in order."""
+        cfg = self.cfg
         if workers > 1:
             import multiprocessing
 
@@ -663,25 +700,14 @@ class Pipeline:
             from ..parallel import mesh as pmesh
             mesh = pmesh.active_mesh()
             with ctx.Pool(workers, initializer=_init_worker,
-                          initargs=(threads, mesh and mesh.spec())) as pool:
+                          initargs=(threads, mesh and mesh.spec(),
+                                    trace.worker_state())) as pool:
                 # chunksize=1: default chunking hands one worker a contiguous
                 # block of the LARGEST clusters (order is size-sorted),
                 # serialising the heavy tail and defeating LPT
-                reports = pool.map(self._one_cluster, order, chunksize=1)
-        else:
-            reports = [self._one_cluster(name, inner_nproc=cfg.nproc)
-                       for name in names]
-        for rep in reports:
-            for key in ("align", "design", "pair"):
-                if rep.get(key + "_s"):
-                    self.cfg.timings[key] = round(
-                        self.cfg.timings.get(key, 0) + rep[key + "_s"], 3)
-            for key, served in rep["served"].items():
-                count = self.served.setdefault(key, {})
-                count[served] = count.get(served, 0) + 1
-            for key, n in rep["kernel_launches"].items():
-                self.kernel_launches[key] += n
-            self.log.extend(rep["log"])
+                return pool.map(self._pooled_cluster, order, chunksize=1)
+        return [self._one_cluster(name, inner_nproc=cfg.nproc)
+                for name in names]
 
     def _clusters_use_torch(self):
         """Whether the per-cluster stages may run torch ops: device or auto
@@ -695,9 +721,34 @@ class Pipeline:
                     and self.device.type == "cuda"
                     and not native.available()))
 
+    def _pooled_cluster(self, name):
+        """``_one_cluster`` in a worker of the fan-out's pool: the report
+        carries the spans the worker recorded (none while the trace is
+        off).  Before its first cluster a worker whose clusters run torch
+        ops on a card makes its CUDA context, which their first CUDA call
+        would make: so the worker's start (``worker.start``) holds it."""
+        global _WORKER_READY
+        if not _WORKER_READY:
+            if self.device.type == "cuda" and self._clusters_use_torch():
+                import torch
+                torch.cuda.synchronize(self.device)
+            _WORKER_READY = True
+            trace.worker_started()
+        rep = self._one_cluster(name)
+        rep["spans"] = trace.take()
+        return rep
+
     def _one_cluster(self, name, inner_nproc=1):
+        with trace.span("cluster"):
+            rep = self._cluster_stages(name, inner_nproc)
+            for key, n in rep["kernel_launches"].items():
+                if n:
+                    trace.count("launches." + key, n)
+        return rep
+
+    def _cluster_stages(self, name, inner_nproc):
         from ..align import centerstar
-        from ..models import mcdpd, pairing
+        from ..models import mcdpd
         cfg = self.cfg
         rep = {"align_s": 0.0, "design_s": 0.0, "pair_s": 0.0, "log": [],
                "served": {}}
@@ -709,25 +760,12 @@ class Pipeline:
                 raise FileNotFoundError(
                     "align.backend=external but missing " + msa_path)
             ids, seqs = self._read_fasta(tfa)
-            t0 = time.time()
-            if cfg.align_backend == "progressive":
-                from ..align import progressive
-                _, rows = progressive.progressive_msa(ids, seqs)
-                rep["served"]["align"] = "progressive"
-            else:
-                _, rows = centerstar.center_star_msa(
-                    ids, seqs,
-                    backend="device"
-                    if cfg.align_backend == "centerstar-device"
-                    else "numpy"
-                    if cfg.align_backend == "centerstar-numpy"
-                    else "auto", device=self.device)
-                rep["served"]["align"] = centerstar.LAST_BACKEND
-            if cfg.msa_refine > 0:
-                from ..align import refine
-                rows = refine.refine_msa(rows, cfg.msa_refine)
-            centerstar.write_msa(ids, rows, msa_path)
-            rep["align_s"] += time.time() - t0
+            t0 = time.perf_counter()
+            with trace.span("align"):
+                trace.count("members", len(ids))
+                rows = self._align(ids, seqs, rep)
+                centerstar.write_msa(ids, rows, msa_path)
+            rep["align_s"] += time.perf_counter() - t0
         if cfg.design_backend == "wrc":
             self._wrc_cluster(name, msa_path, tfa)
             rep["kernel_launches"] = {k: n - launched[k]
@@ -749,57 +787,43 @@ class Pipeline:
                 coordinate=cfg.coordinate, hairpin_distance=cfg.distance,
                 algo=cfg.algo, nproc=inner_nproc, stage_a=cfg.stage_a,
                 device=self.device)
-            ids, chars = mcdpd.parse_msa(msa_path)
+            with trace.span("msa.parse"):
+                ids, chars = mcdpd.parse_msa(msa_path)
+            trace.count("members", len(ids))
+            trace.count("columns", chars.shape[1])
             eng = mcdpd.DesignEngine(params)
-            t0 = time.time()
-            try:
-                results = eng.design(ids, chars)
-            except ValueError as e:
-                rep["log"].append(("design:" + name, "skipped: %s" % e, 0))
-                results = []
-            if eng.stage_a_used:
-                rep["served"]["stage_a"] = eng.stage_a_used
-            # table now (pairing parses it); sidecars in a forked child
-            # overlapped with pairing — they are a pure function of
-            # `results`, and a fork (unlike a thread) doesn't timeshare
-            # the GIL with the pairing loop
-            mcdpd.write_table(results, out)
-            sidecar_wait = mcdpd.write_sidecars_forked(results, out)
-            fresh = mcdpd.pairing_inputs(results)
-            rep["design_s"] += time.time() - t0
-            self._log_file("multiPrime_" + name, time.time() - t0)
+            t0 = time.perf_counter()
+            with trace.span("design"):
+                try:
+                    results = eng.design(ids, chars)
+                except ValueError as e:
+                    rep["log"].append(("design:" + name, "skipped: %s" % e,
+                                       0))
+                    results = []
+                if eng.stage_a_used:
+                    rep["served"]["stage_a"] = eng.stage_a_used
+                # table now (pairing parses it); sidecars in a forked child
+                # overlapped with pairing — they are a pure function of
+                # `results`, and a fork (unlike a thread) doesn't timeshare
+                # the GIL with the pairing loop
+                with trace.span("design.write"):
+                    mcdpd.write_table(results, out)
+                    sidecar_wait = mcdpd.write_sidecars_forked(results, out)
+                    fresh = mcdpd.pairing_inputs(results)
+            dt = time.perf_counter() - t0
+            rep["design_s"] += dt
+            self._log_file("multiPrime_" + name, dt)
         else:
             sidecar_wait = None
             fresh = None
         try:
             if not os.path.exists(cand):
-                t0 = time.time()
-                pparams = pairing.PairingParams(
-                    size=cfg.product_size, fraction=cfg.coverage,
-                    end_dege=cfg.end, hairpin_distance=cfg.distance,
-                    diff_tm=cfg.diff_tm, adaptor=cfg.adaptor, max_seq=0,
-                    nproc=inner_nproc)
-                primers = pairing.parse_primer_table(out)
-                if fresh is not None:
-                    gap_ids, non_cover = fresh
-                else:
-                    gap_ids = json.load(open(out + ".gap_seq_id_json"))
-                    non_cover = json.load(
-                        open(out + ".non_coverage_seq_id_json"))
-                number = pairing.count_ref_seqs(tfa, 0)
-                peng = pairing.PairingEngine(pparams)
-                pairs, _ = peng.pair(primers, gap_ids, non_cover, number)
-                # write-then-rename: a candidate file's existence signals
-                # this cluster done to _fanout_complete (possibly polled by
-                # another shard's aggregating run), so it must never be
-                # observable half-written
-                if pairs is None:
-                    pairing.write_empty_output(cand, write_path=cand + ".tmp")
-                else:
-                    pairing.write_outputs(pairs, cand, write_path=cand + ".tmp")
-                os.replace(cand + ".tmp", cand)
-                rep["pair_s"] += time.time() - t0
-                self._log_file("get_multiPrime_" + name, time.time() - t0)
+                t0 = time.perf_counter()
+                with trace.span("pair"):
+                    self._pair(out, cand, tfa, fresh, inner_nproc)
+                dt = time.perf_counter() - t0
+                rep["pair_s"] += dt
+                self._log_file("get_multiPrime_" + name, dt)
         finally:
             if sidecar_wait is not None:
                 sidecar_wait()
@@ -810,6 +834,58 @@ class Pipeline:
         rep["kernel_launches"] = {k: n - launched[k]
                                   for k, n in _kernel_launches().items()}
         return rep
+
+    def _align(self, ids, seqs, rep):
+        """The cluster's MSA rows by the configured backend, polished."""
+        from ..align import centerstar
+        cfg = self.cfg
+        if cfg.align_backend == "progressive":
+            from ..align import progressive
+            _, rows = progressive.progressive_msa(ids, seqs)
+            rep["served"]["align"] = "progressive"
+        else:
+            _, rows = centerstar.center_star_msa(
+                ids, seqs,
+                backend="device"
+                if cfg.align_backend == "centerstar-device"
+                else "numpy"
+                if cfg.align_backend == "centerstar-numpy"
+                else "auto", device=self.device)
+            rep["served"]["align"] = centerstar.LAST_BACKEND
+        if cfg.msa_refine > 0:
+            from ..align import refine
+            rows = refine.refine_msa(rows, cfg.msa_refine)
+        return rows
+
+    def _pair(self, out, cand, tfa, fresh, inner_nproc):
+        """The cluster's candidate pairs from its design table ``out``
+        (and its sidecars, or ``fresh``: the design's own) into ``cand``."""
+        from ..models import pairing
+        cfg = self.cfg
+        pparams = pairing.PairingParams(
+            size=cfg.product_size, fraction=cfg.coverage,
+            end_dege=cfg.end, hairpin_distance=cfg.distance,
+            diff_tm=cfg.diff_tm, adaptor=cfg.adaptor, max_seq=0,
+            nproc=inner_nproc)
+        primers = pairing.parse_primer_table(out)
+        if fresh is not None:
+            gap_ids, non_cover = fresh
+        else:
+            gap_ids = json.load(open(out + ".gap_seq_id_json"))
+            non_cover = json.load(
+                open(out + ".non_coverage_seq_id_json"))
+        number = pairing.count_ref_seqs(tfa, 0)
+        peng = pairing.PairingEngine(pparams)
+        pairs, _ = peng.pair(primers, gap_ids, non_cover, number)
+        # write-then-rename: a candidate file's existence signals this
+        # cluster done to _fanout_complete (possibly polled by another
+        # shard's aggregating run), so it must never be observable
+        # half-written
+        if pairs is None:
+            pairing.write_empty_output(cand, write_path=cand + ".tmp")
+        else:
+            pairing.write_outputs(pairs, cand, write_path=cand + ".tmp")
+        os.replace(cand + ".tmp", cand)
 
     def _wrc_cluster(self, name, msa_path, tfa):
         """multi-DegePrime flow: trim + WRC design + get_degePrimer pairing
@@ -840,10 +916,27 @@ class Pipeline:
             os.replace(cand + ".tmp", cand)
 
     def _aggregate_and_solve(self):
-        from ..solve import maxset
-        from ..validate import findimer, pcr, scan as vscan
+        with trace.span("aggregate"):
+            agg = self._aggregate()
+        t_solve = time.perf_counter()
+        with trace.span("solve"):
+            sets = self._solve(agg)
+        self.cfg.timings["solve"] = round(time.perf_counter() - t_solve, 3)
+        pcr_wait = self._pcr(sets)
+        try:
+            t0 = time.perf_counter()
+            with trace.span("coverage"):
+                ran_scan = self._coverage(sets)
+            if ran_scan:
+                self.cfg.timings["scan"] = round(time.perf_counter() - t0, 3)
+        finally:
+            if pcr_wait is not None:
+                with trace.span("pcr.wait"):
+                    pcr_wait()
+
+    def _aggregate(self):
+        """The clusters' candidate files in one -> its path."""
         from . import stages
-        cfg = self.cfg
         agg = self._p("Primers_set", "candidate_primers_sets.txt")
         if not os.path.exists(agg):
             with open(agg, "w") as f:
@@ -852,8 +945,16 @@ class Pipeline:
                                    name + ".candidate.primers.txt")
                     f.write(open(cand).read())
         stages.txt2fa(agg, self._p("Primers_set", "candidate_primers_sets"),
-                      agg.replace(".txt", ".number"), step=cfg.step)
-        t_solve = time.time()
+                      agg.replace(".txt", ".number"), step=self.cfg.step)
+        return agg
+
+    def _solve(self, agg):
+        """The final and the core primer sets, with their dimer and hairpin
+        reports -> (final, final_fa, core_final, core_fa, have_core)."""
+        from ..solve import maxset
+        from ..validate import findimer
+        from . import stages
+        cfg = self.cfg
         final = self._p("Primers_set", "final_maxprimers_set.xls")
         if not os.path.exists(final):
             primers = maxset.parse_and_sort(
@@ -920,15 +1021,21 @@ class Pipeline:
         primers = None
         import gc
         gc.collect()
-        self.cfg.timings["solve"] = round(time.time() - t_solve, 3)
-        # perfect-match PCR products + coverage summaries (rules 15 AND 16:
-        # extract_PCR_product on the final set and again on the core set,
-        # multiPrime.py:358-392).  The product writing is IO-bound (GBs of
-        # per-pair FASTAs at scale) while the validation scan below is
-        # compute-bound — when fork is safe both PCR stages run in one
-        # child genuinely overlapped with the scan (VERDICT r2 next-round
-        # #4), same pattern as the design sidecars.
+        return final, final_fa, core_final, core_fa, have_core
+
+    def _pcr(self, sets):
+        """Perfect-match PCR products + coverage summaries (rules 15 AND
+        16: extract_PCR_product on the final set and again on the core
+        set, multiPrime.py:358-392) -> a wait for them, or None when they
+        are done.  The product writing is IO-bound (GBs of per-pair FASTAs
+        at scale) while the validation scan is compute-bound — when fork
+        is safe both PCR stages run in one child genuinely overlapped with
+        the scan (VERDICT r2 next-round #4), same pattern as the design
+        sidecars."""
         from ..models import mcdpd
+        from ..validate import pcr
+        cfg = self.cfg
+        final, _, core_final, _, have_core = sets
         fmt_fa = self._p("Total_fa", self.v + ".format.fa")
         pcr_jobs = []              # (pairs, out_dir, stast_xls)
         cov = self._p("Primers_set", "Coverage_stast.xls")
@@ -940,78 +1047,80 @@ class Pipeline:
             pcr_jobs.append((pcr.parse_pairs_xls(core_final),
                              self._p("Core_primers_set", "core_PCR_product"),
                              core_cov))
-        pcr_wait = None
-        if pcr_jobs:
-            t0 = time.time()
+        if not pcr_jobs:
+            return None
+        t0 = time.perf_counter()
 
-            def _run_pcr(jobs=pcr_jobs):
-                for pairs, out_dir, stast in jobs:
-                    pcr.run(pairs, fmt_fa, out_dir, stast,
-                            products=cfg.pcr_products)
+        def _run_pcr(jobs=pcr_jobs):
+            for pairs, out_dir, stast in jobs:
+                pcr.run(pairs, fmt_fa, out_dir, stast,
+                        products=cfg.pcr_products)
 
-            if mcdpd.fork_safe():
-                pid = os.fork()
-                if pid == 0:
-                    code = 1
-                    try:
-                        _run_pcr()
-                        code = 0
-                    finally:
-                        os._exit(code)
-
-                def pcr_wait():
-                    _, status = os.waitpid(pid, 0)
-                    if status != 0:
-                        # torn append-mode summaries: redo every job whole
-                        redo = []
-                        for pairs, out_dir, stast in pcr_jobs:
-                            if os.path.exists(stast):
-                                os.remove(stast)
-                            redo.append((pairs, out_dir, stast))
-                        _run_pcr(redo)
-                    self.cfg.timings["pcr"] = round(time.time() - t0, 3)
-            else:
+        if not mcdpd.fork_safe():
+            with trace.span("pcr"):
                 _run_pcr()
-                self.cfg.timings["pcr"] = round(time.time() - t0, 3)
-        # mismatch-tolerant coverage validation of the CORE set (rule 19,
-        # multiPrime.py:441-460: scan core_final_maxprimers_set.fa with
-        # -l primer_len -t 1 -s 50,2000; BWT replacement).  Runs with no
-        # core set fall back to validating the final set so small inputs
-        # still get coverage numbers; scan_final additionally scans the
-        # final set on every run.
-        try:
-            t0 = time.time()
-            ran_scan = False
-            dict_pkl = self._p("Total_fa", self.v + ".format.dict")
-            targets_dict = None          # -original has no dict: like the
-            if os.path.exists(dict_pkl):       # reference's -d None,
-                with open(dict_pkl, "rb") as f:        # no unmatched.fa
-                    targets_dict = pickle.load(f)
-            term_len = cfg.scan_term_len
-            if term_len is None or int(term_len) < 0:
-                term_len = cfg.primer_len        # rule 19's -l {primer_len}
-            params = vscan.ScanParams(
-                term_len=int(term_len), term=cfg.scan_term, mm=cfg.scan_mm,
-                product_size=tuple(cfg.scan_product))
-            if have_core:
-                bwt_out = self._p("Core_primers_set", "BWT_coverage",
-                                  "core_final_maxprimers_set.out")
-                if not os.path.exists(bwt_out):
-                    vscan.run(core_fa, fmt_fa, bwt_out, params, targets_dict,
-                              device=self.device)
-                    ran_scan = True
-            if cfg.scan_final or not have_core:
-                bwt_out = self._p("Core_primers_set", "BWT_coverage",
-                                  "final_maxprimers_set.out")
-                if not os.path.exists(bwt_out):
-                    vscan.run(final_fa, fmt_fa, bwt_out, params, targets_dict,
-                              device=self.device)
-                    ran_scan = True
-            if ran_scan:
-                self.cfg.timings["scan"] = round(time.time() - t0, 3)
-        finally:
-            if pcr_wait is not None:
-                pcr_wait()
+            self.cfg.timings["pcr"] = round(time.perf_counter() - t0, 3)
+            return None
+        pid = os.fork()
+        if pid == 0:
+            code = 1
+            try:
+                _run_pcr()
+                code = 0
+            finally:
+                os._exit(code)
+
+        def pcr_wait():
+            _, status = os.waitpid(pid, 0)
+            if status != 0:
+                # torn append-mode summaries: redo every job whole
+                redo = []
+                for pairs, out_dir, stast in pcr_jobs:
+                    if os.path.exists(stast):
+                        os.remove(stast)
+                    redo.append((pairs, out_dir, stast))
+                _run_pcr(redo)
+            self.cfg.timings["pcr"] = round(time.perf_counter() - t0, 3)
+        return pcr_wait
+
+    def _coverage(self, sets):
+        """Mismatch-tolerant coverage validation of the CORE set (rule 19,
+        multiPrime.py:441-460: scan core_final_maxprimers_set.fa with -l
+        primer_len -t 1 -s 50,2000; BWT replacement).  Runs with no core
+        set fall back to validating the final set so small inputs still
+        get coverage numbers; scan_final additionally scans the final set
+        on every run.  -> whether a scan ran."""
+        from ..validate import scan as vscan
+        cfg = self.cfg
+        _, final_fa, _, core_fa, have_core = sets
+        fmt_fa = self._p("Total_fa", self.v + ".format.fa")
+        ran_scan = False
+        dict_pkl = self._p("Total_fa", self.v + ".format.dict")
+        targets_dict = None          # -original has no dict: like the
+        if os.path.exists(dict_pkl):       # reference's -d None,
+            with open(dict_pkl, "rb") as f:        # no unmatched.fa
+                targets_dict = pickle.load(f)
+        term_len = cfg.scan_term_len
+        if term_len is None or int(term_len) < 0:
+            term_len = cfg.primer_len        # rule 19's -l {primer_len}
+        params = vscan.ScanParams(
+            term_len=int(term_len), term=cfg.scan_term, mm=cfg.scan_mm,
+            product_size=tuple(cfg.scan_product))
+        if have_core:
+            bwt_out = self._p("Core_primers_set", "BWT_coverage",
+                              "core_final_maxprimers_set.out")
+            if not os.path.exists(bwt_out):
+                vscan.run(core_fa, fmt_fa, bwt_out, params, targets_dict,
+                          device=self.device)
+                ran_scan = True
+        if cfg.scan_final or not have_core:
+            bwt_out = self._p("Core_primers_set", "BWT_coverage",
+                              "final_maxprimers_set.out")
+            if not os.path.exists(bwt_out):
+                vscan.run(final_fa, fmt_fa, bwt_out, params, targets_dict,
+                          device=self.device)
+                ran_scan = True
+        return ran_scan
 
 
 def run_pipeline(config_path=None, **overrides):

@@ -39,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils import iupac
+from ..utils import iupac, trace
 from ..ops import mismatch_scan as ms
 
 # Which backend the most recent scan_hits call resolved to
@@ -199,6 +199,13 @@ def scan_hits(target_seqs, patterns, params: ScanParams, device="cuda"):
     Mixed-length pattern sets are scanned in per-length groups (the device
     kernel wants a rectangular pattern tensor).  ``device`` is where the
     device branch runs; asking for CUDA without a GPU raises."""
+    with trace.span("scan"):
+        hits = _scan_hits(target_seqs, patterns, params, device)
+        trace.count("hits", len(hits))
+    return hits
+
+
+def _scan_hits(target_seqs, patterns, params: ScanParams, device):
     from ..utils import link as linkmod
     dev = linkmod.resolve_device(device)
     if not patterns or not target_seqs:
@@ -208,8 +215,8 @@ def scan_hits(target_seqs, patterns, params: ScanParams, device="cuda"):
         hits = []
         for plen in sorted(lengths):
             group = [(i, p) for i, p in enumerate(patterns) if len(p) == plen]
-            sub_hits = scan_hits(target_seqs, [p for _, p in group], params,
-                                 dev)
+            sub_hits = _scan_hits(target_seqs, [p for _, p in group],
+                                  params, dev)
             remap = [i for i, _ in group]
             hits.extend((s, o, remap[p], m) for s, o, p, m in sub_hits)
         return hits
@@ -261,25 +268,31 @@ def scan_hits(target_seqs, patterns, params: ScanParams, device="cuda"):
             hits = []
             for lo in range(0, len(target_seqs), nbs):
                 chunk = target_seqs[lo:lo + nbs]
-                codes, lens = ms.encode_target_codes(chunk)
+                with trace.span("scan.encode"):
+                    codes, lens = ms.encode_target_codes(chunk)
                 if codes.shape[1] < plen:
                     continue
                 fn = native.seed_scan if use_seed else native.mask_scan
-                out = fn(codes, lens, masks, params.mm,
-                         max(params.term, 0))
-                for s, o, pi, m in out.tolist():
-                    hits.append((lo + s, o, pi, m))
+                with trace.span("scan.host"):
+                    out = fn(codes, lens, masks, params.mm,
+                             max(params.term, 0))
+                with trace.span("scan.hitlist"):
+                    for s, o, pi, m in out.tolist():
+                        hits.append((lo + s, o, pi, m))
             return hits
         for lo in range(0, len(target_seqs), bs):
             chunk = target_seqs[lo:lo + bs]
-            t1h, lens = ms.encode_targets(chunk)
+            with trace.span("scan.encode"):
+                t1h, lens = ms.encode_targets(chunk)
             if t1h.shape[1] < plen:
                 continue
-            out = ms.find_hits_numpy(t1h, lens, p1h, s1h, mm=params.mm,
-                                     term=max(params.term, 0))
-            for s, o, pi, m in out:
-                if pi < n_real:
-                    hits.append((lo + int(s), int(o), int(pi), int(m)))
+            with trace.span("scan.host"):
+                out = ms.find_hits_numpy(t1h, lens, p1h, s1h, mm=params.mm,
+                                         term=max(params.term, 0))
+            with trace.span("scan.hitlist"):
+                for s, o, pi, m in out:
+                    if pi < n_real:
+                        hits.append((lo + int(s), int(o), int(pi), int(m)))
         return hits
     if pad_len < plen:
         LAST_BACKEND = "device"
@@ -300,42 +313,54 @@ def scan_hits(target_seqs, patterns, params: ScanParams, device="cuda"):
     if params.corpus_cache is not None:
         stacked = params.corpus_cache.get(cache_key)
     if stacked is None:
-        tm = np.zeros((n_batches, bs, pad_len), np.uint8)
-        lm = np.zeros((n_batches, bs), np.int32)
-        for bi in range(n_batches):
-            chunk = target_seqs[bi * bs:(bi + 1) * bs]
-            t1h, lens = ms.encode_target_masks(chunk, length=pad_len)
-            tm[bi, :len(chunk)] = t1h
-            lm[bi, :len(chunk)] = lens
-        stacked = (torch.from_numpy(tm).to(dev), torch.from_numpy(lm).to(dev))
+        with trace.span("scan.encode"):
+            tm = np.zeros((n_batches, bs, pad_len), np.uint8)
+            lm = np.zeros((n_batches, bs), np.int32)
+            for bi in range(n_batches):
+                chunk = target_seqs[bi * bs:(bi + 1) * bs]
+                t1h, lens = ms.encode_target_masks(chunk, length=pad_len)
+                tm[bi, :len(chunk)] = t1h
+                lm[bi, :len(chunk)] = lens
+        with trace.span("scan.upload"):
+            stacked = (torch.from_numpy(tm).to(dev),
+                       torch.from_numpy(lm).to(dev))
+            if trace.ON and dev.type == "cuda":
+                torch.cuda.synchronize(dev)  # the copy's end, in the span
+        trace.count("h2d_bytes", tm.nbytes + lm.nbytes)
         if params.corpus_cache is not None:
             params.corpus_cache[cache_key] = stacked
     t_all, l_all = stacked
-    planes, suffix_planes = ms.pack_patterns(p1h, s1h, device=dev)
+    with trace.span("scan.upload"):
+        planes, suffix_planes = ms.pack_patterns(p1h, s1h, device=dev)
     # per-batch hit cap, grown and rescanned when a batch overflows it
     max_hits = 1 << 17
     global DEVICE_BATCHES
-    while True:
-        packs = ms.find_hits_batched(
-            t_all, l_all, planes, suffix_planes, plen=plen, mm=params.mm,
-            term=max(params.term, 0), max_hits=max_hits,
-            want_mism=params.want_mism).cpu().numpy()
-        DEVICE_BATCHES += n_batches
-        worst = int(packs[:, 0].max()) if len(packs) else 0
-        if worst <= max_hits:
-            break
-        max_hits = 1 << (2 * worst - 1).bit_length()
+    with trace.span("scan.find_hits"):
+        while True:
+            packs = ms.find_hits_batched(
+                t_all, l_all, planes, suffix_planes, plen=plen, mm=params.mm,
+                term=max(params.term, 0), max_hits=max_hits,
+                want_mism=params.want_mism).cpu().numpy()
+            DEVICE_BATCHES += n_batches
+            trace.count("batches", n_batches)
+            trace.count("d2h_bytes", packs.nbytes)
+            worst = int(packs[:, 0].max()) if len(packs) else 0
+            if worst <= max_hits:
+                break
+            trace.count("retries")
+            max_hits = 1 << (2 * worst - 1).bit_length()
     from ..utils import link as linkmod
     linkmod.mark_device_warm()       # first-use cost paid in this process
     LAST_BACKEND = "device"          # only once the scan succeeded
-    for bi in range(n_batches):
-        seq, pos, pat, mm_, _ = ms.decode_packed(
-            packs[bi], n_out, p1h.shape[0], max_hits)
-        lo = bi * bs
-        for s, o, p, m in zip(seq.tolist(), pos.tolist(), pat.tolist(),
-                              mm_.tolist()):
-            if p < n_real:      # drop bucket-padding rows
-                hits.append((lo + s, o, p, m))
+    with trace.span("scan.hitlist"):
+        for bi in range(n_batches):
+            seq, pos, pat, mm_, _ = ms.decode_packed(
+                packs[bi], n_out, p1h.shape[0], max_hits)
+            lo = bi * bs
+            for s, o, p, m in zip(seq.tolist(), pos.tolist(), pat.tolist(),
+                                  mm_.tolist()):
+                if p < n_real:      # drop bucket-padding rows
+                    hits.append((lo + s, o, p, m))
     return hits
 
 
@@ -394,9 +419,16 @@ def scan_hits_long(target_seqs, patterns, params: ScanParams,
     exactly once.  Short target sets pass straight through."""
     if not patterns or not target_seqs:
         return []
+    with trace.span("scan"):
+        hits = _scan_hits_long(target_seqs, patterns, params, device)
+        trace.count("hits", len(hits))
+    return hits
+
+
+def _scan_hits_long(target_seqs, patterns, params: ScanParams, device):
     seg_len = params.seg_len
     if max(len(s) for s in target_seqs) <= seg_len:
-        return scan_hits(target_seqs, patterns, params, device)
+        return _scan_hits(target_seqs, patterns, params, device)
     overlap = max(len(p) for p in patterns) - 1
     if seg_len <= overlap:
         raise ValueError(
@@ -404,26 +436,29 @@ def scan_hits_long(target_seqs, patterns, params: ScanParams,
             % (seg_len, overlap + 1))
     stride = seg_len - overlap
     segs, origin = [], []            # origin: (target_idx, offset, is_last)
-    for ti, s in enumerate(target_seqs):
-        if len(s) <= seg_len:
-            segs.append(s)
-            origin.append((ti, 0, True))
-            continue
-        off = 0
-        while True:
-            chunk = s[off:off + seg_len]
-            last = off + seg_len >= len(s)
-            segs.append(chunk)
-            origin.append((ti, off, last))
-            if last:
-                break
-            off += stride
-    raw = scan_hits(segs, patterns, params, device)
+    with trace.span("scan.segment"):
+        for ti, s in enumerate(target_seqs):
+            if len(s) <= seg_len:
+                segs.append(s)
+                origin.append((ti, 0, True))
+                continue
+            off = 0
+            while True:
+                chunk = s[off:off + seg_len]
+                last = off + seg_len >= len(s)
+                segs.append(chunk)
+                origin.append((ti, off, last))
+                if last:
+                    break
+                off += stride
+    trace.count("segments", len(segs))
+    raw = _scan_hits(segs, patterns, params, device)
     hits = []
-    for si, o, pi, m in raw:
-        ti, off, last = origin[si]
-        if o < stride or last:
-            hits.append((ti, off + o, pi, m))
+    with trace.span("scan.hitlist"):
+        for si, o, pi, m in raw:
+            ti, off, last = origin[si]
+            if o < stride or last:
+                hits.append((ti, off + o, pi, m))
     return hits
 
 
@@ -553,17 +588,22 @@ def run(primer_fa, ref_fa, outfile, params: ScanParams, targets_dict=None,
     from ..utils import link as linkmod
     dev = linkmod.resolve_device(device)
     term_fa = os.path.splitext(primer_fa)[0] + ".term.fa"
-    patterns, labels, keys, key_labels = expand_primer_fasta(
-        primer_fa, params.term_len, term_fa, with_keys=True)
+    with trace.span("coverage.expand"):
+        patterns, labels, keys, key_labels = expand_primer_fasta(
+            primer_fa, params.term_len, term_fa, with_keys=True)
     if keys is not None:
         # degenerate mask scan: one pattern per key instead of per expansion
         # (identical rows — see expand_primer_fasta; fuzzed in test_scan.py)
         patterns, labels = keys, key_labels
-    gene_ids, target_seqs = parse_fasta(ref_fa)
-    rc_patterns = [iupac.rc(p) for p in patterns]
+    with trace.span("coverage.parse"):
+        gene_ids, target_seqs = parse_fasta(ref_fa)
+        rc_patterns = [iupac.rc(p) for p in patterns]
     with shared_corpus(params):
         f_hits = scan_hits_long(target_seqs, patterns, params, dev)
         r_hits = scan_hits_long(target_seqs, rc_patterns, params, dev)
-    rows = pcr_join(gene_ids, f_hits, r_hits, labels, params.product_size)
-    write_outputs(rows, outfile, targets_dict)
+    with trace.span("coverage.join"):
+        rows = pcr_join(gene_ids, f_hits, r_hits, labels,
+                        params.product_size)
+    with trace.span("coverage.write"):
+        write_outputs(rows, outfile, targets_dict)
     return rows

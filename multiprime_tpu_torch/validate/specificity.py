@@ -27,7 +27,7 @@ for the F and R scans.
 from __future__ import annotations
 
 from . import scan as vscan
-from ..utils import iupac
+from ..utils import iupac, trace
 
 
 def write_outputs(rows, outfile):
@@ -77,17 +77,22 @@ def run(primer_fa, background_fa, outfile, *, term_len=18, term=4, mm=1,
                               product_size=tuple(product_size),
                               batch_seqs=batch_seqs, backend=backend)
     term_fa = os.path.splitext(primer_fa)[0] + ".term.fa"
-    patterns, labels, keys, key_labels = vscan.expand_primer_fasta(
-        primer_fa, params.term_len, term_fa, with_keys=True)
+    with trace.span("specificity.expand"):
+        patterns, labels, keys, key_labels = vscan.expand_primer_fasta(
+            primer_fa, params.term_len, term_fa, with_keys=True)
     if keys is not None:
         patterns, labels = keys, key_labels
-    gene_ids, target_seqs = vscan.parse_fasta(background_fa)
-    rc_patterns = [iupac.rc(p) for p in patterns]
+    with trace.span("specificity.parse"):
+        gene_ids, target_seqs = vscan.parse_fasta(background_fa)
+        rc_patterns = [iupac.rc(p) for p in patterns]
     with vscan.shared_corpus(params):
         f_hits = vscan.scan_hits_long(target_seqs, patterns, params, dev)
         r_hits = vscan.scan_hits_long(target_seqs, rc_patterns, params, dev)
-    rows = vscan.pcr_join(gene_ids, f_hits, r_hits, labels,
-                          params.product_size,
-                          exhaustive=exhaustive_join)
-    write_outputs(rows, outfile)
+    with trace.span("specificity.join"):
+        rows = vscan.pcr_join(gene_ids, f_hits, r_hits, labels,
+                              params.product_size,
+                              exhaustive=exhaustive_join)
+    trace.count("rows", len(rows))
+    with trace.span("specificity.write"):
+        write_outputs(rows, outfile)
     return rows
