@@ -48,7 +48,7 @@ class Mesh:
 
     def spec(self):
         """The device strings [[...], ...]: a picklable form that
-        ``Mesh(spec)`` rebuilds (a spawned worker's copy of the mesh)."""
+        ``Mesh(spec)`` rebuilds (a pool worker's copy of the mesh)."""
         return [[str(d) for d in row] for row in self.devices]
 
 

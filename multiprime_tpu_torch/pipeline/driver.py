@@ -36,20 +36,58 @@ import numpy as np
 from ..utils import trace
 
 
-def _init_worker(n, mesh_spec=None, trace_state=None):
-    # pool worker initializer: divide the machine's cores between cluster
-    # workers so native threaded kernels (gotoh_ops_batch, refine_realign)
-    # and torch's CPU ops never oversubscribe W workers x all cores; record
-    # spans for the parent's request while it records them; and
-    # enter the parent's device mesh, which a spawned worker does not
-    # inherit (else its device Stage A would run on one device)
+def _init_worker(n, mesh_spec, trace_state, env, cwd):
+    # pool worker initializer: take the parent's environment and working
+    # directory as of the pool's creation (a forkserver's child starts
+    # with the server's, taken when an earlier job started it); divide
+    # the machine's cores between cluster workers so native threaded
+    # kernels (gotoh_ops_batch, refine_realign) and torch's CPU ops never
+    # oversubscribe W workers x all cores; record spans for the parent's
+    # request while it records them; and enter the parent's device mesh,
+    # which a worker does not inherit (else its device Stage A would run
+    # on one device)
     import torch
+    os.environ.clear()
+    os.environ.update(env)
+    os.chdir(cwd)
     os.environ["MPTPU_NATIVE_THREADS"] = str(n)
     torch.set_num_threads(n)
     trace.adopt(trace_state)
     if mesh_spec is not None:
         from ..parallel import mesh as pmesh
         pmesh.use_mesh(pmesh.Mesh(mesh_spec)).__enter__()
+
+
+# what the cluster pools' forkserver imports once, so that each worker it
+# forks starts with them: the main module first (multiprocessing's
+# default), torch, and the port's modules a cluster runs.  Imports only:
+# the server never touches CUDA and runs no thread but its own.
+_PRELOAD = ["__main__", "torch"] + [
+    "multiprime_tpu_torch." + mod for mod in (
+        "pipeline.driver", "align.centerstar", "align.device",
+        "models.mcdpd", "models.pairing", "ops.design_scan", "ops._cuda",
+        "native")]
+# the pid of the forkserver this process started with _PRELOAD
+# (multiprocessing keeps one server a process)
+_SERVER_PID = None
+
+
+def _forkserver():
+    """-> (the forkserver context of the cluster pools, whether its server
+    was already running with ``_PRELOAD``).  Starts the server where it is
+    not; the server then imports in the background, and a pool's workers
+    fork from it once it has."""
+    global _SERVER_PID
+    import multiprocessing
+    from multiprocessing import forkserver
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    server = forkserver._forkserver
+    up = _SERVER_PID is not None and server._forkserver_pid == _SERVER_PID
+    server.ensure_running()
+    warm = up and server._forkserver_pid == _SERVER_PID
+    _SERVER_PID = server._forkserver_pid
+    return ctx, warm
 
 
 @dataclass
@@ -247,6 +285,10 @@ class Pipeline:
         # launches of the device DP and Stage-A kernels in the cluster
         # stages, summed over the workers
         self.kernel_launches = dict.fromkeys(_kernel_launches(), 0)
+        # how the fan-out's pool started: its method, and for a forkserver
+        # whether the server was up before this run asked for it
+        self.pool = {"pool_start": None}
+        self.server_warm = None
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
                                         cfg.virus_name + ".fa")
@@ -337,6 +379,10 @@ class Pipeline:
         if cfg.pipeline_variant == "original" and cfg.algo == "v20":
             cfg.algo = "v15"             # multiPrime-original.py:210
         shard = self._resolve_cluster_shard()
+        if cfg.nproc > 1 and self._clusters_use_torch():
+            # the pool's forkserver imports torch and the port while this
+            # process runs the stages up to the fan-out
+            self.server_warm = _forkserver()[1]
         if shard is not None and shard[0] != 0 \
                 and not os.path.exists(self._p("cluster.txt")):
             # non-zero shards must not race shard 0 on the upstream stages
@@ -436,6 +482,7 @@ class Pipeline:
         info["scan_device_batches"] = vscan.DEVICE_BATCHES
         for key, n in self.kernel_launches.items():
             info[key + "_launches"] = n
+        info.update(self.pool)
         return info
 
     def _seq_format(self, out):
@@ -636,7 +683,7 @@ class Pipeline:
     def _per_cluster_stages(self, shard=None):
         """Per-cluster align -> design -> pair fan-out.
 
-        With ``nproc > 1`` clusters run concurrently on a fork pool —
+        With ``nproc > 1`` clusters run concurrently on a process pool —
         the Snakemake checkpoint fan-out (multiPrime.py rules multiPrime/
         get_multiPrime over checkpoint extract_cluster, --cores): every
         cluster touches disjoint files, so workers are independent;
@@ -687,21 +734,32 @@ class Pipeline:
             order = sorted(
                 names, key=lambda n: -int(n.rsplit("_", 1)[1]))
             # fork (cheap, COW) unless the workers run torch ops or CUDA is
-            # already initialised here; spawn then.  A CUDA context does
-            # not survive fork, and once this process asked
-            # torch.cuda.is_available() a forked child's first CUDA call
-            # raises ("Cannot re-initialize CUDA in forked subprocess";
-            # torch 2.11 on an H100); torch CPU ops in a child forked from
-            # a multi-threaded parent can deadlock.
-            method = ("fork" if mcdpd.fork_safe()
-                      and not self._clusters_use_torch() else "spawn")
-            ctx = multiprocessing.get_context(method)
+            # already initialised here; fork from the forkserver then.  A
+            # CUDA context does not survive fork, and once this process
+            # asked torch.cuda.is_available() a forked child's first CUDA
+            # call raises ("Cannot re-initialize CUDA in forked
+            # subprocess"; torch 2.11 on an H100); torch CPU ops in a child
+            # forked from a multi-threaded parent can deadlock.  The server
+            # is neither: one thread, torch imported, CUDA never touched.
+            if mcdpd.fork_safe() and not self._clusters_use_torch():
+                method = "fork"
+                ctx = multiprocessing.get_context(method)
+            else:
+                method = "forkserver"
+                ctx, warm = _forkserver()
+                if self.server_warm is None:
+                    self.server_warm = warm
+                self.pool["pool_server_warm"] = int(self.server_warm)
+                trace.count("pool.server_warm", int(self.server_warm))
+            self.pool["pool_start"] = method
+            trace.count("pool." + method)
             threads = max(1, (os.cpu_count() or 1) // workers)
             from ..parallel import mesh as pmesh
             mesh = pmesh.active_mesh()
             with ctx.Pool(workers, initializer=_init_worker,
                           initargs=(threads, mesh and mesh.spec(),
-                                    trace.worker_state())) as pool:
+                                    trace.worker_state(), dict(os.environ),
+                                    os.getcwd())) as pool:
                 # chunksize=1: default chunking hands one worker a contiguous
                 # block of the LARGEST clusters (order is size-sorted),
                 # serialising the heavy tail and defeating LPT
@@ -726,7 +784,8 @@ class Pipeline:
         carries the spans the worker recorded (none while the trace is
         off).  Before its first cluster a worker whose clusters run torch
         ops on a card makes its CUDA context, which their first CUDA call
-        would make: so the worker's start (``worker.start``) holds it."""
+        would make: so the worker's start (``worker.start``: the fork, the
+        job's state unpickled, ``_init_worker``) holds it."""
         global _WORKER_READY
         if not _WORKER_READY:
             if self.device.type == "cuda" and self._clusters_use_torch():

@@ -2,7 +2,7 @@
 
 A span is one interval of one layer: its name, its start and end in
 nanoseconds of ``time.perf_counter_ns()`` (CLOCK_MONOTONIC on Linux: one
-clock for a process and the workers it spawns, and the clock of
+clock for a process and its pool's workers, and the clock of
 ``time.perf_counter()``), the span that holds it, the request it serves
 (one CLI command; a pool worker's spans carry its parent's), the process,
 a dict of counts taken at the same boundary (members, windows, segments,

@@ -78,10 +78,10 @@ def test_pair_cli_equals_jax(tmp_path, msa):
 @pytest.mark.parametrize("nproc", [1, 2])
 def test_run_pipeline_device_stages_equal_jax_host(tmp_path, nproc):
     """`run_pipeline` with device Stage A and the device Gotoh (torch on the
-    CPU; in process, and in a pool of two workers, which the driver spawns
-    since they run torch ops) writes the tree of the JAX package's host
-    run, and its metrics show that the device paths served every
-    cluster."""
+    CPU; in process, and in a pool of two workers, which the driver forks
+    from its forkserver since they run torch ops) writes the tree of the
+    JAX package's host run, and its metrics show that the device paths
+    served every cluster."""
     fa = tmp_path / "three.fa"
     _three_families(fa)
     res = tmp_path / "res"

@@ -1067,16 +1067,131 @@ with multiprocessing.get_context("fork").Pool(1) as pool:
 
 
 def test_forked_worker_cannot_reinit_cuda(cuda):
-    """Why the driver spawns its cluster pool when the workers run torch
-    ops: once a process asked torch.cuda.is_available() (as Pipeline does),
-    a forked child's first CUDA call raises, though is_initialized() is
-    still False in the parent."""
+    """Why the driver forks its cluster pool from a forkserver, not from
+    itself, when the workers run torch ops: once a process asked
+    torch.cuda.is_available() (as Pipeline does), a forked child's first
+    CUDA call raises, though is_initialized() is still False in the
+    parent."""
     import subprocess
     import sys
     out = subprocess.run([sys.executable, "-c", _FORK_AFTER_PROBE],
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "refused:" in out.stdout and "forked subprocess" in out.stdout
+
+
+_FORKSERVER_PROBE = """
+import os, time
+from multiprime_tpu_torch.pipeline import driver
+
+
+class StartProbe(driver.Pipeline):
+    # a worker reports when its first task began in place of a cluster
+    def _pooled_cluster(self, name):
+        return os.getpid(), time.perf_counter_ns()
+"""
+
+_FORKSERVER_JOBS = r"""
+import json, os, sys, time
+import numpy as np
+from torch.profiler import ProfilerActivity, profile
+from multiprime_tpu_torch.pipeline import driver
+from multiprime_tpu_torch.utils import trace
+work = sys.argv[1]
+sys.path.insert(0, work)
+import fanout_probe
+res = os.path.join(work, "res")
+
+
+def pool_start():
+    # the longest time from a fan-out's pool to a worker's first task
+    pipe = fanout_probe.StartProbe(driver.PipelineConfig(
+        results_dir=res, device="cuda", stage_a="device"))
+    t0 = time.perf_counter_ns()
+    first = {}
+    for pid, t in pipe._fan_out(["c_%d" % i for i in range(8)], 8):
+        first[pid] = min(t, first.get(pid, t))
+    return max(first.values()) - t0, pipe.pool
+
+
+probes = [pool_start(), pool_start()]
+rng = np.random.default_rng(43)
+lut = np.array(list("ACGT"))
+fa = os.path.join(work, "ten.fa")
+with open(fa, "w") as f:
+    for b in range(10):
+        base = rng.choice(lut, size=480)
+        for i in range(8):
+            s = base.copy()
+            s[rng.integers(0, len(s), size=6)] = rng.choice(lut, size=6)
+            f.write(">F%d_%d\n%s\n" % (b, i, "".join(s)))
+jobs = []
+for job in range(2):
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.request("run"):
+            pipe, _ = driver.run_pipeline(
+                None, input_fa=fa, results_dir=res, virus_name="ten",
+                coverage=0.5, min_seq_length=100, product_size=(100, 400),
+                algo="v20", device="cuda", stage_a="device",
+                align_backend="centerstar-device", nproc=8)
+    spans = trace.take()
+    tree = {}
+    for root, _, files in os.walk(res):
+        for name in files:
+            if name != "pipeline_metrics.json":
+                path = os.path.join(root, name)
+                with open(path, "rb") as f:
+                    tree[os.path.relpath(path, res)] = f.read().hex()
+    os.rename(res, res + str(job))
+    starts = [(s["end"] - s["start"]) / 1e9 for s in spans
+              if s["name"] == "worker.start"]
+    jobs.append({"tree": tree, "starts": starts,
+                 "fanout": next(s["counts"] for s in spans
+                                if s["name"] == "fanout"),
+                 "backends": pipe._backends()})
+print(json.dumps({"probes": probes, "jobs": jobs}))
+"""
+
+
+def test_forkserver_workers_run_stage_a_and_gotoh_on_card(cuda, tmp_path):
+    """In one fresh process: a pool of 8 whose forkserver starts cold
+    (the server imports torch and the port), then a pool from the warm
+    server, whose workers reach their first task in under a third of
+    the cold pool's time; then two `run --nproc 8 --stage-a device`
+    jobs with the device Gotoh, every cluster's Stage A and Gotoh DP on
+    the card in workers forked from the warm server (each makes its own
+    context), the two trees identical."""
+    import json
+    import os
+    import subprocess
+    import sys
+    (tmp_path / "fanout_probe.py").write_text(_FORKSERVER_PROBE)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FORKSERVER_JOBS,
+                          str(tmp_path)], capture_output=True, text=True,
+                         timeout=900, cwd=root)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    (cold, cold_pool), (warm, warm_pool) = got["probes"]
+    assert cold_pool == {"pool_start": "forkserver", "pool_server_warm": 0}
+    assert warm_pool == {"pool_start": "forkserver", "pool_server_warm": 1}
+    assert warm < cold / 3, (cold / 1e9, warm / 1e9)
+    first, second = got["jobs"]
+    assert first["tree"] == second["tree"]
+    for job in (first, second):
+        assert job["fanout"]["workers"] == 8
+        assert job["fanout"]["pool.forkserver"] == 1
+        assert job["fanout"]["pool.server_warm"] == 1
+        assert len(job["starts"]) == 8
+        b = job["backends"]
+        assert b["pool_start"] == "forkserver"
+        assert b["pool_server_warm"] == 1
+        n = job["fanout"]["clusters"]
+        assert n >= 8
+        assert b["stage_a_served"] == b["align_served"] == {"device": n}
+        assert b["stage_a_kernel_launches"] > 0
+        assert b["gotoh_dp_warp_launches"] + b["gotoh_dp_launches"] > 0
 
 
 def _planted_background(rng, lengths, pats, near):

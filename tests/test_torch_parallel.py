@@ -265,8 +265,8 @@ def test_run_pipeline_devices_equals_jax(tmp_path, nproc):
     """`run_pipeline(devices=8, device="cpu", stage_a="device")` writes the
     tree of JAX's devices=8 run byte for byte (both into one path, one
     after the other), every cluster's Stage A through the sharded block
-    runner: in process, and in a pool of two spawned workers, each handed
-    the mesh."""
+    runner: in process, and in a pool of two workers forked from the
+    driver's forkserver, each handed the mesh."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     fa = tmp_path / "two.fa"
