@@ -30,6 +30,9 @@ GAP_OPEN, GAP_EXT = -4, -1
 # the pairwise DP that served this process's last center_star_msa call:
 # "native", "device", "numpy", or "none" for a single sequence
 LAST_BACKEND = None
+# pairs of the ragged k-mer pair expansion a chunk of
+# _pairwise_intersections (bounds its memory)
+_PAIR_CHUNK = 4_000_000
 
 
 def _pairwise_intersections(sets):
@@ -64,8 +67,11 @@ def _pairwise_intersections(sets):
     # chunk the ragged pair expansion to bound memory (~4M pairs per chunk)
     cum = np.concatenate([[0], np.cumsum(rank)])
     total = int(cum[-1])
-    step = 4_000_000
-    cuts = np.searchsorted(cum, np.arange(step, total + step, step))
+    step = _PAIR_CHUNK
+    # a cut past the last group (the last step overshoots total) ends
+    # where the groups do
+    cuts = np.minimum(
+        np.searchsorted(cum, np.arange(step, total + step, step)), len(ow))
     lo = 0
     for hi in np.unique(np.append(cuts, len(ow))):
         hi = int(hi)

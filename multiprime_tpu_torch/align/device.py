@@ -73,6 +73,12 @@ _OP_CHARS = np.array(["M", "D", "I", ""], dtype=object)
 # past it the state moves to a global scratch
 _DP_THREADS = 256
 _DP_SMEM_BYTES = 160 * 1024
+# the device bytes one gotoh_block or refine_block call may allocate (its
+# pointer scratch, row state, inputs and outputs): the member blocks of a
+# call are sized by it, so that eight workers beside one card fit with room
+# at genome length (a 500-member family of 8.3 kb takes about 61 members a
+# Gotoh block); at CDS length the members cap a block first
+_DP_BLOCK_BYTES = 4 << 30
 
 # the warp kernels' columns (slots) a lane, their instantiations in
 # csrc/gotoh_dp.cu and csrc/refine_dp.cu (at 48 and more the Gotoh row no
@@ -97,6 +103,36 @@ def _row_state(m, width, slot_bytes, dev):
         return None, 0
     region = _round_up(need, 16)
     return torch.empty(m * region, dtype=torch.uint8, device=dev), region
+
+
+def gotoh_member_bytes(la, lb):
+    """Device bytes a member adds to a ``gotoh_block`` call of center length
+    ``la`` and member width ``lb``: its pointer scratch, its ops, the CTA
+    kernel's row state where it leaves shared memory, and its codes."""
+    name, _, pitch = gotoh_kernel_plan(lb)
+    state = 10 * _round_up(lb + 1, _DP_THREADS)
+    state = (0 if name != "gotoh_dp" or state <= _DP_SMEM_BYTES
+             else _round_up(state, 16))
+    return la * pitch + (la + lb) + state + 4 * (lb + 1)
+
+
+def refine_member_bytes(c, lmax):
+    """Device bytes a member adds to a ``refine_block`` call of ``c``
+    columns and member width ``lmax``: its pointer scratch (at the width's
+    kernel, whose pitch is never below the CTA kernel's), the CTA kernel's
+    row state where it leaves shared memory, its profile terms (s4, go_c,
+    ge_c, occ2), codes, length and placed columns."""
+    name, _, pitch = refine_kernel_plan(lmax)
+    state = 9 * _round_up(lmax + 1, _DP_THREADS)
+    state = (0 if name != "refine_dp" or state <= _DP_SMEM_BYTES
+             else _round_up(state, 16))
+    return c * pitch + state + 4 * c * (6 + 3) + 8 * lmax + 8 + 8 * c
+
+
+def block_members(member_bytes, cap):
+    """Members a DP block takes: as many as ``_DP_BLOCK_BYTES`` holds at
+    ``member_bytes`` each, at least one and at most ``cap``."""
+    return max(1, min(int(cap), _DP_BLOCK_BYTES // max(member_bytes, 1)))
 
 
 def _ptr_or_null(t):
@@ -295,6 +331,9 @@ def align_ops_batch_device(c, member_codes, member_block=512,
 
 
 def _align_ops_batch(c, member_codes, member_block, as_codes, device):
+    """``align_ops_batch_device``'s body: blocks of at most ``member_block``
+    members, fewer where ``_DP_BLOCK_BYTES`` holds fewer at the call's
+    widest member; the ops do not depend on the blocks."""
     dev = linkmod.resolve_device(device)
     copies = trace.ON and dev.type != "cpu"
     c = np.asarray(c, np.int64)
@@ -305,14 +344,21 @@ def _align_ops_batch(c, member_codes, member_block, as_codes, device):
     c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
     if copies:
         trace.count("h2d_bytes", 4 * la)
-    for lo in range(0, len(member_codes), member_block):
-        part = member_codes[lo:lo + member_block]
+    lb_max = max([len(b) for b in member_codes] + [1])
+    step = block_members(gotoh_member_bytes(la, lb_max), member_block)
+    for lo in range(0, len(member_codes), step):
+        part = member_codes[lo:lo + step]
         bmat, lbs_dev = gotoh_block_inputs(part, device=dev)
         lb = bmat.shape[1]
+        if trace.ON:
+            trace.count("blocks")
+            trace.count("cells", len(part) * la * lb)
+            trace.count("ptr_bytes", len(part) * la * gotoh_kernel_plan(lb)[2])
         ops_rev = gotoh_block(c_dev, bmat, lbs_dev).cpu().numpy()
         if copies:
             trace.count("h2d_bytes", 4 * (bmat.numel() + len(part)))
             trace.count("d2h_bytes", ops_rev.nbytes)
+        del bmat, lbs_dev        # freed before the next block's are made
         if as_codes:
             # reverse + left-shift out the pad prefix, all in NumPy; the
             # width is the JAX trace's, la_pad + lb_pad
@@ -514,15 +560,24 @@ def refine_pass_device(res_chars, res_codes, lens, f6, occ, c,
     the device DP is add/max-only and rounds identically to the NumPy path.
     """
     dev = linkmod.resolve_device(device)
+    copies = trace.ON and dev.type != "cpu"
     m = len(res_chars)
     lmax = res_codes.shape[1]
     rows = []
-    for lo in range(0, m, member_block):
-        sel = slice(lo, min(lo + member_block, m))
+    # blocks of at most member_block members, fewer where _DP_BLOCK_BYTES
+    # holds fewer (the rows do not depend on the blocks)
+    step = block_members(refine_member_bytes(c, lmax), member_block)
+    for lo in range(0, m, step):
+        sel = slice(lo, min(lo + step, m))
         mc = sel.stop - sel.start
         blk = refine_block_inputs(res_codes, lens, f6, occ, sel, go, ge,
                                   device=dev)
         cols = refine_block(*blk).cpu().numpy()
+        trace.count("blocks")
+        if copies:
+            trace.count("h2d_bytes", sum(t.nbytes for t in blk))
+            trace.count("d2h_bytes", cols.nbytes)
+        del blk                  # freed before the next block's are made
         # Vectorised placement: the trace emits residues last-to-first, so
         # the r-th placed column of member k carries chars[lens[k]-1-r].
         chars_mat = np.zeros((mc, lmax if lmax else 1), np.uint8)

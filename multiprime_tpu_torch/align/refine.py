@@ -34,6 +34,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import trace
+
 GAP_OPEN = -4.0     # opening cost, scaled by column occupancy
 GAP_EXT = -1.0      # per-column skip cost, scaled by column occupancy
 NEG = np.float32(-1e30)
@@ -261,18 +263,32 @@ def drop_gap_columns(rows):
     return [bytes(r).decode("ascii") for r in mat]
 
 
-def refine_msa(rows, iterations=2, chunk_bytes=1 << 30):
+def refine_msa(rows, iterations=2, chunk_bytes=1 << 30, backend="auto",
+               device="cuda"):
     """Iteratively polish an MSA; each pass is kept only if the column
     agreement score improves.  Row order and residue content are preserved;
-    all-gap columns are dropped."""
+    all-gap columns are dropped.  ``backend`` and ``device`` choose where
+    each pass runs, as for ``refine_pass``; every backend gives the same
+    rows."""
     if len(rows) < 2 or iterations <= 0:
         return list(rows)
-    cur = drop_gap_columns(list(rows))
-    cur_q = agreement_score(encode_rows(cur))
-    for _ in range(iterations):
-        cand = drop_gap_columns(refine_pass(cur, chunk_bytes))
-        q = agreement_score(encode_rows(cand))
-        if q <= cur_q:
-            break
-        cur, cur_q = cand, q
+    with trace.span("align.refine"):
+        cur = drop_gap_columns(list(rows))
+        cur_q = agreement_score(encode_rows(cur))
+        trace.count("members", len(cur))
+        trace.count("columns", len(cur[0]))
+        for _ in range(iterations):
+            if trace.ON:
+                c = len(cur[0])
+                lmax = max(c - r.count("-") for r in cur)
+                trace.count("passes")
+                trace.count("cells", len(cur) * c * lmax)
+                trace.count("member_columns", len(cur) * c)
+            cand = drop_gap_columns(refine_pass(cur, chunk_bytes, backend,
+                                                device))
+            q = agreement_score(encode_rows(cand))
+            if q <= cur_q:
+                break
+            trace.count("kept")
+            cur, cur_q = cand, q
     return cur

@@ -124,6 +124,11 @@ def _run(argv):
                    help="design Stage-A backend (default: host/config): "
                         "device runs it as CUDA kernels on --device, auto "
                         "takes the side the measured crossover picks")
+    p.add_argument("--refine", choices=["host", "device"],
+                   help="where the MSA polish passes run (default: "
+                        "host/config): host runs the native DP, device the "
+                        "refine DP kernels on --device; the rows are the "
+                        "same")
     p.add_argument("--cluster-shard", dest="cluster_shard", metavar="i/P",
                    help="run only every P-th cluster of the fan-out "
                         "(multi-host: each host runs its shard against a "
@@ -157,7 +162,7 @@ def _run(argv):
     elif not args.config:
         overrides["results_dir"] = "results"
     for key in ("algo", "coverage", "devices", "stage_a", "cluster_shard",
-                "pcr_products", "nproc", "device"):
+                "pcr_products", "nproc", "device", "refine"):
         if getattr(args, key) is not None:
             overrides[key] = getattr(args, key)
     if args.backend is not None:

@@ -115,16 +115,26 @@ class Cluster:
 
 
 def greedy_cluster(ids, seqs, threshold=0.7, k=10, band=64,
-                   word_filter_slack=1.0):
+                   word_filter_slack=1.0, threads=1):
     """-> (order, clusters): cd-hit-style greedy clustering.
 
     order: indices sorted longest-first (ties: input order) — the processing
     order, which is also the representative ordering.
+
+    threads: with the native library, a query's candidate representatives
+    are aligned ``threads`` at a time on a thread pool (the native call
+    releases the GIL), and the first in candidate order that reaches the
+    threshold takes the query, as in the serial walk: the clusters do not
+    depend on it.  At genome length the word filter passes unrelated
+    representatives, so a query meets several.
     """
+    from concurrent.futures import ThreadPoolExecutor
     from .. import native
     use_native = native.available()
     ident_fn = native.banded_identity if use_native else banded_identity
     kmer_fn = native.kmer_codes if use_native else kmer_set
+    wave = max(int(threads), 1) if use_native else 1
+    pool = ThreadPoolExecutor(wave) if wave > 1 else None
     n = len(seqs)
     order = sorted(range(n), key=lambda i: (-len(seqs[i]), i))
     codes = {i: _encode(seqs[i]) for i in order}
@@ -149,22 +159,34 @@ def greedy_cluster(ids, seqs, threshold=0.7, k=10, band=64,
             # scored alignment alone cannot reject unrelated pairs (optimally
             # placed length-difference gaps chase spurious matches).
             # k must keep L^2/4^k below 0.25*c^k*L for the longest inputs:
-            # k=10 holds to L ~ 30 kb at c = 0.7.  The shared counts come
-            # from one pass over the inverted index, not per-rep
+            # k=10 holds to L ~ 7.4 kb at c = 0.7 (past it, as for 8.3 kb
+            # genomes, unrelated pairs pass and are aligned).  The shared
+            # counts come from one pass over the inverted index, not per-rep
             # intersections.
             need = 0.25 * (threshold ** k) * max(len(seq) - k + 1, 1)
-            for ci in posting.query(q_kmers, need / word_filter_slack):
-                cl = clusters[ci]
-                ident = ident_fn(codes[i], codes[cl.rep_index], band)
-                if ident >= threshold:
-                    cl.members.append((i, ident))
-                    placed = True
+            cands = posting.query(q_kmers, need / word_filter_slack)
+
+            def to_rep(ci):
+                return ident_fn(codes[i], codes[clusters[ci].rep_index], band)
+            for lo in range(0, len(cands), wave):
+                part = cands[lo:lo + wave]
+                idents = (pool.map(to_rep, part)
+                          if pool is not None and len(part) > 1
+                          else map(to_rep, part))
+                for ci, ident in zip(part, idents):
+                    if ident >= threshold:
+                        clusters[ci].members.append((i, ident))
+                        placed = True
+                        break
+                if placed:
                     break
         if not placed:
             exact[seq] = len(clusters)
             ci = len(clusters)
             clusters.append(Cluster(rep_index=i, members=[(i, None)]))
             posting.add(q_kmers, ci)
+    if pool is not None:
+        pool.shutdown()
     return order, clusters
 
 

@@ -177,6 +177,10 @@ class PipelineConfig:
     align_backend: str = "centerstar"
     msa_refine: int = 2                  # profile-realignment polish passes
                                          # (0 disables; accept-if-better)
+    # where the polish passes run (yaml key refine_backend): "host" (the
+    # native DP, else NumPy) or "device" (the refine DP kernels on
+    # ``device``); the rows are the same
+    refine: str = "host"
     # "main" = multiPrime.py's 19-rule DAG; "original" = the
     # multiPrime-original.py variant (2.0.3): no acc->record dict, no
     # ANI-based small-cluster merging, no Clusters_target reports, and the
@@ -231,6 +235,8 @@ class PipelineConfig:
             cfg.virus_name = v[0] if isinstance(v, list) else str(v)
         if "msa_refine" in raw:
             cfg.msa_refine = int(raw["msa_refine"])
+        if "refine_backend" in raw:
+            cfg.refine = str(raw["refine_backend"])
         if "Model" in raw and "algo" not in raw:
             # multiPrime.yaml:30-33 (shipped commented out; no reference
             # rule consumes it): "fast" = the greedy NN-refinement engine
@@ -277,6 +283,9 @@ def _kernel_launches():
 class Pipeline:
     def __init__(self, cfg: PipelineConfig):
         from ..utils import link as linkmod
+        if cfg.refine not in ("host", "device"):
+            raise ValueError("refine (yaml refine_backend) is host or "
+                             "device, not %r" % (cfg.refine,))
         self.cfg = cfg
         self.device = linkmod.resolve_device(cfg.device)
         # clusters served by each Stage-A and align backend: {"stage_a":
@@ -475,7 +484,8 @@ class Pipeline:
                 "device": str(self.device),
                 "device_name": linkmod.device_name(self.device),
                 "stage_a_served": self.served.get("stage_a", {}),
-                "align_served": self.served.get("align", {})}
+                "align_served": self.served.get("align", {}),
+                "refine_served": self.served.get("refine", {})}
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
         info["find_hits_launches"] = ms.FIND_HITS_LAUNCHES
@@ -515,7 +525,7 @@ class Pipeline:
         from ..cluster import greedy
         ids, seqs = self._read_fasta(fa)
         order, clusters = greedy.greedy_cluster(
-            ids, seqs, threshold=self.cfg.identity)
+            ids, seqs, threshold=self.cfg.identity, threads=self.cfg.nproc)
         greedy.write_representatives(clusters, ids, seqs, out)
         greedy.write_clstr(clusters, ids, seqs, out + ".clstr")
 
@@ -769,12 +779,13 @@ class Pipeline:
 
     def _clusters_use_torch(self):
         """Whether the per-cluster stages may run torch ops: device or auto
-        Stage A, or the device Gotoh (explicit, or the auto align backend
-        on a GPU without the native library)."""
+        Stage A, the device Gotoh (explicit, or the auto align backend
+        on a GPU without the native library), or the device refine."""
         from .. import native
         cfg = self.cfg
         return (cfg.stage_a != "host"
                 or cfg.align_backend == "centerstar-device"
+                or cfg.refine == "device"
                 or (cfg.align_backend == "centerstar"
                     and self.device.type == "cuda"
                     and not native.available()))
@@ -911,9 +922,12 @@ class Pipeline:
                 if cfg.align_backend == "centerstar-numpy"
                 else "auto", device=self.device)
             rep["served"]["align"] = centerstar.LAST_BACKEND
-        if cfg.msa_refine > 0:
+        if cfg.msa_refine > 0 and len(rows) > 1:
             from ..align import refine
-            rows = refine.refine_msa(rows, cfg.msa_refine)
+            rows = refine.refine_msa(
+                rows, cfg.msa_refine, device=self.device,
+                backend="device" if cfg.refine == "device" else "auto")
+            rep["served"]["refine"] = cfg.refine
         return rows
 
     def _pair(self, out, cand, tfa, fresh, inner_nproc):

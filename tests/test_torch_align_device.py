@@ -402,3 +402,79 @@ def test_refine_trace_tile_holds_every_read(kind, case):
     assert seen["i<32"] > 0
     if kind == "seeded":
         assert seen["j<=1"] > 0
+
+
+def _kmer_sets(seed, n, length, div):
+    """k-mer sets (k = 12) of a family of ``n`` sequences of ``length`` at
+    ``div`` substitution divergence: over 65,536 distinct k-mers, so
+    _pairwise_intersections takes its chunked group-pair path."""
+    from multiprime_tpu_torch.cluster.greedy import _encode, kmer_set
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=length)
+    seqs = []
+    for _ in range(n):
+        s = base.copy()
+        hit = rng.random(length) < div
+        s[hit] = rng.integers(0, 4, size=int(hit.sum()))
+        seqs.append("".join("ACGT"[v] for v in s))
+    return seqs, [kmer_set(_encode(s), 12) for s in seqs]
+
+
+@pytest.mark.parametrize("chunk", [7, 1000, 99_991, 4_000_000])
+def test_pairwise_intersections_in_chunks(chunk, monkeypatch):
+    """Chunks of the pair expansion of 7 pairs up to the default 4M (where
+    the last chunk's cut passed the last group, pick_center raised
+    IndexError at 100 genomes of 8.3 kb): the matrix equals per-pair
+    intersect1d, and pick_center the plain O(n^2) Jaccard pick."""
+    seqs, sets = _kmer_sets(3, 30, 5000, 0.1)
+    assert np.unique(np.concatenate(sets)).size > 65536
+    monkeypatch.setattr(tcs, "_PAIR_CHUNK", chunk)
+    mat = tcs._pairwise_intersections(sets)
+    want = np.array([[np.intersect1d(a, b).size for b in sets]
+                     for a in sets])
+    assert np.array_equal(mat, want)
+    jac = [sum(want[i, j] / (want[i, i] + want[j, j] - want[i, j])
+               for j in range(len(sets)) if j != i)
+           for i in range(len(sets))]
+    assert tcs.pick_center(seqs) == int(np.argmax(jac))
+
+
+def test_align_ops_batch_blocks_by_bytes(monkeypatch):
+    """A byte budget of three members a block at members over 1,280 bases
+    with indels (the CTA kernel's widths): the op lists and as_codes
+    matrix equal one block's."""
+    ids, seqs = _family(31, 9, 1330, (5, 40))
+    codes = [tcs._encode(s) for s in seqs]
+    c, members = codes[0], codes[1:]
+    lb = max(len(b) for b in members)
+    assert lb + 1 > tdev._GOTOH_WARP_MAX_COLS
+    whole = tdev.align_ops_batch_device(c, members, device="cpu")
+    whole_codes = tdev.align_ops_batch_device(c, members, as_codes=True,
+                                              device="cpu")
+    per = tdev.gotoh_member_bytes(len(c), lb)
+    monkeypatch.setattr(tdev, "_DP_BLOCK_BYTES", 3 * per + 1)
+    assert tdev.block_members(per, 512) == 3
+    assert tdev.align_ops_batch_device(c, members, device="cpu") == whole
+    got = tdev.align_ops_batch_device(c, members, as_codes=True,
+                                      device="cpu")
+    assert got.shape == whole_codes.shape
+    assert np.array_equal(got, whole_codes)
+    assert whole == jcs.align_ops_batch(c, members)
+
+
+def test_refine_msa_device_equals_host_with_indels(monkeypatch):
+    """refine_msa on the device backend (the plain versions on the CPU, in
+    refine blocks of 4 members under a small byte budget) equals the host
+    backend and the JAX package's refine_msa on an indel-rich family, and
+    its passes move residues."""
+    ids, seqs = _family(37, 14, 200, (10, 35))
+    _, rows = tcs.center_star_msa(ids, seqs, backend="native", device="cpu")
+    want = trefine.refine_msa(rows, 2)
+    assert want == jrefine.refine_msa(rows, 2)
+    assert want != rows
+    assert trefine.refine_msa(rows, 2, backend="device", device="cpu") == want
+    args = trefine.device_pass_inputs(rows)
+    per = tdev.refine_member_bytes(args[5], args[1].shape[1])
+    monkeypatch.setattr(tdev, "_DP_BLOCK_BYTES", 4 * per)
+    assert tdev.block_members(per, 256) == 4
+    assert trefine.refine_msa(rows, 2, backend="device", device="cpu") == want

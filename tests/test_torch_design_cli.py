@@ -108,3 +108,78 @@ def test_run_pipeline_device_stages_equal_jax_host(tmp_path, nproc):
     assert backends["gotoh_dp_warp_launches"] == 0
     assert backends["refine_dp_warp_launches"] == 0
     assert backends["stage_a_kernel_launches"] == 0
+
+
+def _indel_families(path, length=420):
+    """Two families of 8 members with substitutions and indels of 1-6
+    bases, and a singleton."""
+    import numpy as np
+    rng = np.random.default_rng(53)
+    lut = np.array(list("ACGT"))
+    with open(path, "w") as f:
+        for fam in range(2):
+            base = list(rng.choice(lut, size=length))
+            for i in range(8):
+                s = list(base)
+                for _ in range(10):
+                    k = int(rng.integers(0, len(s)))
+                    kind = rng.integers(0, 3)
+                    n = int(rng.integers(1, 7))
+                    if kind == 0:
+                        s[k] = str(rng.choice(lut))
+                    elif kind == 1:
+                        del s[k:k + n]
+                    else:
+                        s[k:k] = list(rng.choice(lut, size=n))
+                f.write(">%c%d\n%s\n" % (65 + fam, i, "".join(s)))
+        f.write(">S0\n%s\n" % "".join(rng.choice(lut, size=length)))
+
+
+def test_run_refine_device_tree_equals_host(tmp_path):
+    """`run --refine device` (the refine DP's plain version on the CPU,
+    the device center-star, a pool of two workers) writes the tree of
+    `--refine host` and of the JAX package's host `run` on the same
+    FASTA, and its backends name the refine backend that served each
+    multi-row cluster."""
+    import json
+    fa = tmp_path / "indels.fa"
+    _indel_families(fa)
+    yaml = tmp_path / "device.yaml"
+    yaml.write_text("align_backend: centerstar-device\n")
+    res = tmp_path / "res"
+    jcli.main(["run", "-i", str(fa), "-r", str(res), "--coverage", "0.5"])
+    trees, backends = {"jax": _tree(res)}, {}
+    os.rename(res, tmp_path / "res_jax")
+    for refine in ("host", "device"):
+        assert tcli.main(["run", "-c", str(yaml), "-i", str(fa), "-r",
+                          str(res), "--device", "cpu", "--coverage", "0.5",
+                          "--nproc", "2", "--refine", refine]) == 0
+        with open(res / "pipeline_metrics.json") as f:
+            backends[refine] = json.load(f)["backends"]
+        trees[refine] = _tree(res)
+        os.rename(res, tmp_path / ("res_" + refine))
+    assert any(rel.endswith(".tmsa") for rel in trees["jax"])
+    for side in ("host", "device"):
+        assert sorted(trees[side]) == sorted(trees["jax"])
+        for rel in trees["jax"]:
+            assert trees[side][rel] == trees["jax"][rel], (side, rel)
+    assert backends["device"]["align_served"]["device"] == 2
+    assert backends["host"]["refine_served"] == {"host": 2}
+    assert backends["device"]["refine_served"] == {"device": 2}
+    assert backends["device"]["refine_dp_launches"] == 0
+
+
+@pytest.mark.parametrize("yaml_text", ["refine_backend: gpu\n", None])
+def test_pipeline_refuses_an_unknown_refine(tmp_path, yaml_text):
+    """A refine backend other than host or device, from the YAML key
+    refine_backend or set on the config, is refused as the pipeline is
+    built, before any stage runs."""
+    if yaml_text is None:
+        cfg = tdriver.PipelineConfig()
+        cfg.refine = "auto"
+    else:
+        path = tmp_path / "bad.yaml"
+        path.write_text(yaml_text)
+        cfg = tdriver.PipelineConfig.from_yaml(str(path))
+    with pytest.raises(ValueError, match="refine"):
+        tdriver.Pipeline(cfg)

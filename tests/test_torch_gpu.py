@@ -1314,3 +1314,106 @@ def test_find_hits_sharded_on_a_mesh_of_one_card(cuda):
             assert torch.equal(a.cpu(), b)
     with pytest.raises(RuntimeError, match="are present"):
         pmesh.make_mesh(torch.cuda.device_count() + 1, device="cuda")
+
+
+def _genome_family(seed, n, length, div, indel_rate):
+    """A family of ``n`` genomes of about ``length`` bases: substitutions at
+    ``div``, indels of 1-12 bases at ``indel_rate`` a base (insertions and
+    deletions with equal odds), every tenth member the base itself."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=length)
+    seqs = []
+    for k in range(n):
+        s = base.copy()
+        if k % 10:
+            hit = rng.random(length) < div
+            s[hit] = rng.integers(0, 4, size=int(hit.sum()))
+            pieces, prev = [], 0
+            for at in np.flatnonzero(rng.random(length) < indel_rate):
+                if at < prev:
+                    continue
+                m = int(min(rng.geometric(0.5), 12))
+                pieces.append(s[prev:at])
+                if rng.random() < 0.5:
+                    pieces.append(rng.integers(0, 4, size=m))
+                    prev = at
+                else:
+                    prev = at + m
+            s = np.concatenate(pieces + [s[prev:]])
+        seqs.append("".join("ACGT"[v] for v in s))
+    return seqs
+
+
+@pytest.fixture(scope="module")
+def genome_family():
+    """500 genomes of about 8.3 kb at 3% divergence with indels (a family
+    of the run.genome cell), its center's codes and members' codes, and
+    the center-star MSA of the device DP."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from multiprime_tpu_torch.align import centerstar
+    seqs = _genome_family(97, 500, 8300, 0.03, 0.001)
+    ids = [str(i) for i in range(len(seqs))]
+    _, rows = centerstar.center_star_msa(ids, seqs, backend="device",
+                                         device="cuda")
+    center = centerstar.pick_center(seqs)
+    codes = [centerstar._encode(s) for s in seqs]
+    return (codes[center], [codes[k] for k in range(len(seqs))
+                            if k != center], rows)
+
+
+def test_gotoh_genome_family_blocks_by_bytes_equal_native(cuda,
+                                                          genome_family):
+    """A 500-genome family of 8.3 kb through align_ops_batch_device under
+    the byte budget (several CTA-kernel blocks, not one of 512) equals the
+    native DP, and the card's peak stays under the budget and the inputs."""
+    from multiprime_tpu_torch import native
+    from multiprime_tpu_torch.align import device as adev
+    c, members, _ = genome_family
+    lb = max(len(b) for b in members)
+    per = adev.gotoh_member_bytes(len(c), lb)
+    assert adev.gotoh_kernel_plan(lb)[0] == "gotoh_dp"
+    assert 1 < adev.block_members(per, 512) < len(members)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launched = adev.GOTOH_DP_LAUNCHES
+    got = adev.align_ops_batch_device(c, members, as_codes=True,
+                                      device=cuda)
+    peak = torch.cuda.max_memory_allocated() - base
+    blocks = -(-len(members) // adev.block_members(per, 512))
+    assert adev.GOTOH_DP_LAUNCHES - launched == blocks
+    # one block's bytes and the center's codes, each allocation rounded
+    # up to whole 2 MiB pages
+    assert peak <= adev._DP_BLOCK_BYTES + 4 * len(c) + (32 << 20), peak
+    if not native.available():
+        pytest.skip("native toolchain unavailable")
+    nat = native.gotoh_ops_batch(c, members)
+    s = min(nat.shape[1], got.shape[1])
+    assert np.array_equal(got[:, :s], nat[:, :s])
+    assert (got[:, s:] == 3).all() and (nat[:, s:] == 3).all()
+
+
+def test_refine_msa_card_equals_host_at_genome_width(cuda, genome_family):
+    """refine_msa on the card (CTA-kernel blocks under the byte budget)
+    equals the host passes on the family's MSA of more than 10,000
+    columns, and the card's peak stays under the budget and the inputs."""
+    from multiprime_tpu_torch.align import device as adev
+    from multiprime_tpu_torch.align import refine
+    _, _, rows = genome_family
+    c = len(rows[0])
+    lmax = max(len(r) - r.count("-") for r in rows)
+    assert c > 10000
+    assert adev.refine_kernel_plan(lmax)[0] == "refine_dp"
+    per = adev.refine_member_bytes(c, lmax)
+    assert 1 < adev.block_members(per, 256) < len(rows)
+    want = refine.refine_msa(rows, 2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launched = adev.REFINE_DP_LAUNCHES
+    got = refine.refine_msa(rows, 2, backend="device", device=cuda)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert adev.REFINE_DP_LAUNCHES - launched >= 2
+    assert got == want
+    assert peak <= adev._DP_BLOCK_BYTES + (32 << 20), peak

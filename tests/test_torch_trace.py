@@ -274,3 +274,33 @@ def test_chrome_export_and_worker_hand_back():
         "fanout", "job", "worker.start", "cluster"]
     cluster = next(e for e in events if e["name"] == "cluster")
     assert cluster["args"]["members"] == 3
+
+
+def test_traced_run_counts_the_dps(tmp_path):
+    """`run --profile DIR --refine device` with the device center-star: each
+    align_ops_batch_device call's ``align.dp`` span counts its blocks,
+    cells and pointer bytes, and each refine_msa call's ``align.refine``
+    span its passes, kept passes, members, columns, cells and blocks, in
+    DIR/spans.json."""
+    fa = tmp_path / "three.fa"
+    _three_families(fa)
+    yaml = tmp_path / "device.yaml"
+    yaml.write_text("align_backend: centerstar-device\n")
+    prof = tmp_path / "prof"
+    assert tcli.main(_run_argv(fa, tmp_path / "res", "-c", str(yaml),
+                               "--refine", "device", "--profile",
+                               str(prof))) == 0
+    with open(prof / "spans.json") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    dp = [e["args"] for e in events if e["name"] == "align.dp"]
+    polish = [e["args"] for e in events if e["name"] == "align.refine"]
+    assert len(dp) == len(polish) == 3
+    for a in dp:
+        assert a["members"] == 7 and a["blocks"] == 1
+        assert a["cells"] > 0 and a["ptr_bytes"] >= a["cells"]
+    for a in polish:
+        assert a["members"] == 8 and a["columns"] >= 480
+        assert 1 <= a["passes"] <= 2 and a.get("kept", 0) <= a["passes"]
+        assert a["blocks"] == a["passes"]
+        assert a["cells"] >= a["passes"] * 8 * 480 * 470
+        assert a["member_columns"] >= a["passes"] * 8 * 480
