@@ -119,7 +119,20 @@ the final line):
    the side "auto" picks for phases 4, 5 and 11's scans, the 21k design
    stage and each cluster of the design sample beside the measured time of
    both sides;
-17. the kernels line: all eight kernel sources; the two DP kernels carry
+17. the clusterer's banded identities (csrc/banded_identity.cu): the
+   kernels against their plain version and the native DP, exact, on 32
+   pairs at whole-genome length (8.2-8.4 kb), at CDS length (850-950 bp)
+   and of partial genomes (6.8-7.3 kb) beside complete ones (the wide
+   kernel), related and not, with N codes, and on pairs on both sides of
+   the 32-bit key's limit; CUDA-event times of one pair alone, the 32
+   pairs and a full window of 2,112 beside the bound (cells x 20 int32
+   operations over 16.7 Tops/s), the plain version's and native's (one
+   thread); the identity constants of utils/link.py fitted from them;
+   then one clustering job of each shape (about 900 genomes, about 3,800
+   CDS) on both sides, the serial walk on 8 threads and the windowed walk
+   on the card, equal clusters, and the side the job's estimate picks in a
+   fresh process and in this warm one;
+18. the kernels line: all nine kernel sources; the two DP kernels carry
    the native DP's ms a block beside their plain version's, design Stage A
    the host Stage A's design wall; find_hits's launches are the `run`'s
    (its main path), hit_codes's those of the phase 11 call whose codes
@@ -170,6 +183,12 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 # only on the residue code; csrc/refine_dp.cu's warp kernel stages six) and
 # the end column's compare and select
 GOTOH_OPS_PER_CELL = 20
+# the banded-identity kernel's int32 operations a band cell (both passes)
+IDENTITY_OPS_PER_CELL = 20
+# the clusterer's pair shapes: (name, lengths lo..hi): whole genomes as
+# run.genome's, viral CDS as run.device's
+IDENTITY_SHAPES = (("genome", 8200, 8400), ("cds", 850, 950))
+IDENTITY_WINDOW = 2112
 REFINE_OPS_PER_CELL = 7
 REFINE_OPS_PER_COLUMN = 8
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core rate
@@ -2829,10 +2848,14 @@ def phase_mesh(args, report, work, res, keys):
     kw = dict(input_fa=fa, results_dir=cut_res, device=DEVICE,
               stage_a="device", pcr_products="summary",
               nproc=os.cpu_count() or 1)
+    from multiprime_tpu_torch.cluster import identity
     with forced_device():
+        # the clustering's banded-identity launches of this run alone
+        identity.IDENTITY_LAUNCHES = 0
         t0 = time.time()
-        run_pipeline(None, **kw)
+        single, _ = run_pipeline(None, **kw)
         single_s = time.time() - t0
+        identity_launches = identity.IDENTITY_LAUNCHES
         os.rename(cut_res, cut_res + "_single")
         ms.FIND_HITS_LAUNCHES = 0
         vscan.DEVICE_BATCHES = 0
@@ -2852,6 +2875,15 @@ def phase_mesh(args, report, work, res, keys):
              "find_hits launches for %d batch shards, %d Stage-A kernel "
              "launches" % (served, backends.get("scan_backend"),
                            run_launches, run_batches, stage_a_run))
+    single_backends = single._backends()
+    if identity_launches <= 0 or \
+            single_backends["identity_launches"] != identity_launches:
+        fail("the run without the mesh made %d banded_identity launches; "
+             "its backends print %s" % (identity_launches,
+                                        single_backends["identity_launches"]))
+    say("phase 14 run without the mesh: its clustering made %d "
+        "banded_identity launches, as its backends print"
+        % identity_launches)
     diff = tree_diff(cut_res + "_single", cut_res)
     if diff is not None:
         fail("the run under the mesh wrote %s unlike the run without" % diff)
@@ -2860,7 +2892,8 @@ def phase_mesh(args, report, work, res, keys):
     out["run"] = {"files": n_files, "mesh_s": mesh_s, "single_s": single_s,
                   "stage_a_served": served,
                   "find_hits_launches": run_launches,
-                  "stage_a_kernel_launches": stage_a_run}
+                  "stage_a_kernel_launches": stage_a_run,
+                  "identity_launches": identity_launches}
     say("phase 14 run under the mesh (--stage-a device, nproc=%d, the "
         "workers handed the mesh): tree == the run without it (%d files); "
         "%.1f s with the mesh, %.1f s without; Stage A served %s, scan %s, "
@@ -3215,6 +3248,250 @@ def phase_crossover(args, report, work, res, keys):
                                             "cuda_starts_s": starts_s}}
 
 
+def identity_pairs(rng, n, lo, hi, short=None):
+    """-> (codes, meta) of n (query, representative) pairs of lo..hi
+    bases as the clusterer meets them: two in three related (2-40%
+    substitutions, a few indels, Ns), the rest unrelated; the
+    representative never shorter.  ``short`` (lo, hi): each query a piece
+    of that length instead (a partial genome)."""
+    codes, meta, at = [], [], 0
+    for k in range(n):
+        b = rng.integers(0, 4, size=int(rng.integers(lo, hi + 1)))
+        if short is not None:
+            la = int(rng.integers(short[0], short[1] + 1))
+            start = int(rng.integers(0, len(b) - la + 1))
+            a = (b[start:start + la].copy() if k % 3 != 2
+                 else rng.integers(0, 4, size=la))
+            hit = rng.random(la) < rng.uniform(0.02, 0.2)
+            a[hit] = rng.integers(0, 5, size=int(hit.sum()))
+        elif k % 3 == 2:
+            a = rng.integers(0, 4, size=int(rng.integers(lo, len(b) + 1)))
+        else:
+            a = b.copy()
+            hit = rng.random(len(a)) < rng.uniform(0.02, 0.4)
+            a[hit] = rng.integers(0, 5, size=int(hit.sum()))
+            a = np.delete(a, rng.integers(0, len(a), size=int(
+                rng.integers(0, 30))))
+            a = a[:len(b)]
+        for s in (a, b):
+            codes.append(s.astype(np.int8))
+        meta.append((at, len(a), at + len(a), len(b)))
+        at += len(a) + len(b)
+    return np.concatenate(codes), np.array(meta, np.int64).T
+
+
+def identity_native(codes, meta, band=64):
+    """The native DP's identities of the pairs and its seconds."""
+    from multiprime_tpu_torch import native
+    t0 = time.perf_counter()
+    got = [native.banded_identity(codes[q:q + lq], codes[r:r + lr], band)
+           for q, lq, r, lr in meta.T.tolist()]
+    return got, time.perf_counter() - t0
+
+
+def identity_cells(meta, band=64):
+    from multiprime_tpu_torch.cluster import identity
+    return int(identity.band_cells(meta[1], meta[3], band).sum())
+
+
+def phase_identity(args, report):
+    """The banded-identity kernels against their plain version and native
+    on 32 pairs of each shape, partial genomes beside complete ones and
+    the 32-bit key's limit, their times, the constants, and one job of
+    each shape on both sides."""
+    import torch
+    from multiprime_tpu_torch.cluster import identity
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(args.seed + 17)
+    launched = identity.IDENTITY_LAUNCHES
+    out = {}
+    errs = []
+
+    def check(label, cd, codes, meta):
+        """The kernels' matches against the plain version's and their
+        identities against native's -> (matches, native's identities)."""
+        got = identity.banded_matches(cd, meta, 64).cpu().numpy()
+        plain = identity.banded_matches_reference(cd, meta, 64).cpu().numpy()
+        want, native_s = identity_native(codes, meta)
+        ident = identity.identities(got, meta)
+        errs.append(max(int(np.abs(got.astype(np.int64) - plain).max()),
+                        max(abs(x - y) for x, y in zip(ident, want))))
+        if errs[-1] != 0:
+            fail("phase 17 %s: the kernels differ from the plain version or "
+                 "native (max_abs_err %s)" % (label, errs[-1]))
+        return got, want, native_s
+
+    for name, lo, hi in IDENTITY_SHAPES:
+        codes, meta = identity_pairs(rng, 32, lo, hi)
+        cd = torch.from_numpy(codes).to(dev)
+        t0 = time.perf_counter()
+        identity.banded_matches_reference(cd, meta, 64)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _, want, native_s = check(name, cd, codes, meta)
+        plan = identity.identity_plan(meta[1], meta[3], 64)
+        one = meta[:, :1]
+        full = np.tile(meta, IDENTITY_WINDOW // 32 + 1)[:, :IDENTITY_WINDOW]
+        m = {"pairs": 32, "plan": plan, "cells": identity_cells(meta),
+             "rows": int(np.minimum(meta[1], meta[3]).max()),
+             "related_at_threshold": int(sum(w >= 0.7 for w in want)),
+             "one_ms": cuda_ms(lambda: identity.banded_matches(cd, one, 64),
+                               10),
+             "ms": cuda_ms(lambda: identity.banded_matches(cd, meta, 64), 10),
+             "window_ms": cuda_ms(
+                 lambda: identity.banded_matches(cd, full, 64), 3),
+             "window_cells": identity_cells(full),
+             "plain_ms": plain_ms, "native_ms": native_s * 1e3,
+             "one_cells": identity_cells(one),
+             "one_rows": int(min(one[1, 0], one[3, 0]))}
+        m.update(bound(codes.nbytes + 32 * 4,
+                       m["cells"] * IDENTITY_OPS_PER_CELL, INT32_OPS_PER_S))
+        m["window_bound_ms"] = (m["window_cells"] * IDENTITY_OPS_PER_CELL
+                                / INT32_OPS_PER_S * 1e3)
+        out[name] = m
+        say("phase 17 identity %s: 32 pairs (%d at 0.7) equal plain and "
+            "native, K %s, %d-bit keys; kernel %.4f ms (bound %.4f, %.1f%%), "
+            "one pair %.4f ms (%d rows: %.3f us a row), a window of %d "
+            "pairs %.4f ms (bound %.4f, %.1f%%); plain %.1f ms, native %.1f "
+            "ms (one thread)"
+            % (name, m["related_at_threshold"], plan[0], plan[1], m["ms"],
+               m["bound_ms"], 100 * m["bound_ms"] / m["ms"], m["one_ms"],
+               m["one_rows"], 1e3 * m["one_ms"] / m["one_rows"],
+               IDENTITY_WINDOW, m["window_ms"], m["window_bound_ms"],
+               100 * m["window_bound_ms"] / m["window_ms"], plain_ms,
+               m["native_ms"]))
+    # partial genomes (6.8-7.3 kb) beside complete ones (8.2-8.4 kb): bands
+    # of 1,030-1,730 cells, past the register kernel
+    codes, meta = identity_pairs(rng, 32, 8200, 8400, short=(6800, 7300))
+    cd = torch.from_numpy(codes).to(dev)
+    _, want, native_s = check("partial", cd, codes, meta)
+    out["partial"] = {
+        "pairs": 32, "cells": identity_cells(meta),
+        "widths": [int(w) for w in identity._width(meta[1], meta[3], 64)[
+            [0, -1]]],
+        "related_at_threshold": int(sum(w >= 0.7 for w in want)),
+        "ms": cuda_ms(lambda: identity.banded_matches(cd, meta, 64), 5),
+        "native_ms": native_s * 1e3}
+    say("phase 17 identity partial genomes: 32 pairs (%d at 0.7) equal plain "
+        "and native on the wide kernel; %.4f ms, native %.1f ms (one thread)"
+        % (out["partial"]["related_at_threshold"], out["partial"]["ms"],
+           out["partial"]["native_ms"]))
+    # both sides of the 32-bit key's limit: la 16,383 and 16,384
+    for la in (16383, 16384):
+        a = rng.integers(0, 4, size=la).astype(np.int8)
+        b = a.copy()
+        hit = rng.random(la) < 0.1
+        b[hit] = rng.integers(0, 5, size=int(hit.sum()))
+        b = np.concatenate([b[:la // 2], b[la // 2 + 20:],
+                            rng.integers(0, 4, size=50).astype(np.int8)])
+        codes = np.concatenate([a, b])
+        meta = np.array([[0], [la], [la], [len(b)]], np.int64)
+        plan = identity.identity_plan(meta[1], meta[3], 64)
+        check("la %d" % la, torch.from_numpy(codes).to(dev), codes, meta)
+        out["limit_%d" % la] = {"plan": plan}
+        say("phase 17 identity la %d lb %d: %d-bit keys, equal native"
+            % (la, len(b), plan[1]))
+    out["max_abs_err"] = max(errs)
+    out["timing_launches"] = identity.IDENTITY_LAUNCHES - launched
+    report["identity"] = out
+    fit_identity(report)
+    identity_jobs(args, report)
+
+
+def fit_identity(report):
+    """The identity constants of utils/link.py from phase 17's times: the
+    native rate of one thread and the kernel's over a full window at genome
+    length, and a row's latency from one pair alone."""
+    g = report["identity"]["genome"]
+    fit = {"host_identity_cells_per_s": g["cells"] / (g["native_ms"] / 1e3),
+           "device_identity_cells_per_s":
+               g["window_cells"] / (g["window_ms"] / 1e3),
+           "device_identity_row_s": g["one_ms"] / 1e3 / g["one_rows"]}
+    say("phase 17 identity fit (paste into utils/link.py RATES): %s"
+        % json.dumps(fit))
+    report.setdefault("crossover", {})["identity_fit"] = fit
+
+
+def cluster_job(rng, length, families, members, singletons, subs):
+    """One clustering job: ``families`` of ``members`` copies of a random
+    sequence of about ``length`` bases, each family with its rate of
+    substitutions from ``subs`` and a few deletions, then random
+    singletons -> (ids, seqs)."""
+    lut = np.array(list("ACGT"))
+    seqs = []
+    for f in range(families):
+        base = rng.integers(0, 4, size=length + int(rng.integers(-50, 50)))
+        for _ in range(members):
+            x = base.copy()
+            hit = rng.random(len(x)) < subs[f % len(subs)]
+            x[hit] = rng.integers(0, 4, size=int(hit.sum()))
+            x = np.delete(x, rng.integers(0, len(x), size=int(
+                rng.integers(0, 12))))
+            seqs.append("".join(lut[x]))
+    for _ in range(singletons):
+        seqs.append("".join(lut[rng.integers(0, 4, size=length + int(
+            rng.integers(-50, 50)))]))
+    return [str(i) for i in range(len(seqs))], seqs
+
+
+def identity_jobs(args, report):
+    """One job of each shape on both sides of the job's choice: the serial
+    walk on 8 threads (the host) and the windowed walk on the card, equal
+    clusters; the side ``identity.resolve_clustering`` picks for the job in
+    a fresh process (the CUDA context and the library's load charged) and
+    in this one, beside both measured walls; the walk's counts."""
+    import torch
+    from multiprime_tpu_torch.cluster import greedy, identity
+    from multiprime_tpu_torch.utils import link as linkmod
+    from multiprime_tpu_torch.utils import trace
+    rng = np.random.default_rng(args.seed + 1717)
+    jobs = {"genome": (8300, 2, 450, 10, (0.03, 0.08)),
+            "cds": (900, 40, 95, 20, (0.03, 0.08))}
+    real_count = trace.count
+    out = {}
+    try:
+        for name, shape in jobs.items():
+            ids, seqs = cluster_job(rng, *shape)
+            counts = {}
+
+            def count(key, n=1):
+                counts[key] = counts.get(key, 0) + n
+            trace.count = count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o_dev, c_dev = greedy.greedy_cluster_windows(
+                ids, seqs, threads=8, device=DEVICE)
+            dev_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            o_host, c_host = greedy.greedy_cluster(ids, seqs, threads=8)
+            host_s = time.perf_counter() - t0
+            if o_dev != o_host or [(c.rep_index, c.members) for c in c_dev] \
+                    != [(c.rep_index, c.members) for c in c_host]:
+                fail("phase 17 %s job: the windowed walk on the card and "
+                     "the serial walk give different clusters" % name)
+            lens = [len(x) for x in seqs]
+            warm = identity.resolve_clustering(lens, 8)
+            real = linkmod.device_startup_s
+            linkmod.device_startup_s = lambda **kw: (
+                linkmod.RATES["cuda_init_s"] + linkmod.RATES["kernel_load_s"])
+            try:
+                fresh = identity.resolve_clustering(lens, 8)
+            finally:
+                linkmod.device_startup_s = real
+            out[name] = {"seqs": len(seqs), "clusters": len(c_dev),
+                         "device_s": dev_s, "host_s": host_s,
+                         "pick_fresh": fresh, "pick_warm": warm,
+                         "counts": counts}
+            say("phase 17 %s job: %d sequences, %d clusters, equal on both "
+                "sides; the card's windowed walk %.3f s, the serial walk %.3f "
+                "s (8 threads); the estimate picks %s in a fresh process, %s "
+                "here; counts %s" % (name, len(seqs), len(c_dev), dev_s,
+                                     host_s, fresh, warm, json.dumps(counts)))
+    finally:
+        trace.count = real_count
+    report["identity"]["jobs"] = out
+
+
 def background_segments(lengths, seg_len=1 << 16, overlap=17):
     """The segment lengths scan_hits_long cuts the background into."""
     stride = seg_len - overlap
@@ -3227,6 +3504,23 @@ def background_segments(lengths, seg_len=1 << 16, overlap=17):
                 break
             off += stride
     return out
+
+
+def identity_entry(report):
+    """The banded-identity kernel's entry of the kernels line: phase 17's
+    genome pairs, native's time (one thread) as the yardstick; launches
+    are those of phase 14's `run` (its clustering, forced to the card),
+    phase 17's own timing launches beside them."""
+    ident = report["identity"]
+    g = ident["genome"]
+    return dict(kernel_entry(dict(g, launches=report["mesh"]["run"][
+        "identity_launches"], max_abs_err=ident["max_abs_err"],
+        library_ms=None), "banded_identity", "banded_identity.cu",
+        "none (the JAX package clusters on the host)"),
+                timing_launches=ident["timing_launches"],
+                native_ms=g["native_ms"], window_ms=g["window_ms"],
+                window_bound_ms=g["window_bound_ms"], cds=ident["cds"],
+                partial=ident["partial"], jobs=ident["jobs"])
 
 
 def kernel_entry(m, name, source, replaces):
@@ -3367,6 +3661,7 @@ def main():
         phase(14, phase_mesh, work, res, keys)
         phase(15, phase_profile, work)
         phase(16, phase_crossover, work, res, keys)
+        phase(17, phase_identity)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the launches of the find_hits kernels on every path that drove them,
@@ -3425,7 +3720,8 @@ def main():
                      "multiprime_tpu/ops/mismatch_scan.py:315"),
         gotoh_entry(report),
         refine_entry(report),
-        stage_a_entry(report)]}
+        stage_a_entry(report),
+        identity_entry(report)]}
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
     if args.report:

@@ -126,10 +126,12 @@ def greedy_cluster(ids, seqs, threshold=0.7, k=10, band=64,
     releases the GIL), and the first in candidate order that reaches the
     threshold takes the query, as in the serial walk: the clusters do not
     depend on it.  At genome length the word filter passes unrelated
-    representatives, so a query meets several.
+    representatives, so a query meets several.  The pairs aligned are
+    counted as ``identity.host_pairs`` on the innermost span.
     """
     from concurrent.futures import ThreadPoolExecutor
     from .. import native
+    from ..utils import trace
     use_native = native.available()
     ident_fn = native.banded_identity if use_native else banded_identity
     kmer_fn = native.kmer_codes if use_native else kmer_set
@@ -170,6 +172,7 @@ def greedy_cluster(ids, seqs, threshold=0.7, k=10, band=64,
                 return ident_fn(codes[i], codes[clusters[ci].rep_index], band)
             for lo in range(0, len(cands), wave):
                 part = cands[lo:lo + wave]
+                trace.count("identity.host_pairs", len(part))
                 idents = (pool.map(to_rep, part)
                           if pool is not None and len(part) > 1
                           else map(to_rep, part))
@@ -185,6 +188,152 @@ def greedy_cluster(ids, seqs, threshold=0.7, k=10, band=64,
             ci = len(clusters)
             clusters.append(Cluster(rep_index=i, members=[(i, None)]))
             posting.add(q_kmers, ci)
+    if pool is not None:
+        pool.shutdown()
+    return order, clusters
+
+
+# a window's pairs: enough to fill the card's warps (132 SMs x 16), and
+# cells capped so that a window ending early at a founder throws away
+# about one pair's latency of work at genome length (the tests lower both)
+_WINDOW_PAIRS = 2112
+_WINDOW_CELLS = 1 << 30
+
+
+def greedy_cluster_windows(ids, seqs, threshold=0.7, k=10, band=64,
+                           word_filter_slack=1.0, threads=1, device="cuda"):
+    """``greedy_cluster``'s clusters, identities included, with the banded
+    identities of a window of queries computed in one batch on ``device``
+    through ``identity.banded_matches`` (the kernels, or their plain
+    version on the CPU).
+
+    A window takes the next queries in processing order (those the exact
+    hash places ride along) until its pairs fill ``_WINDOW_PAIRS`` or
+    ``_WINDOW_CELLS``, or a query with no candidate ends it; each query's
+    candidates come from the word filter against the representatives that
+    stand at the window's start.  The walk then places the window's queries
+    in order by the serial rule (the first candidate, in ascending cluster
+    id, at the threshold).  The first query that none takes founds a
+    cluster and ends the window: the queries after it start the next one,
+    which sees the new representative (a thrown-away query keeps its
+    candidates and adds each later founder whose k-mers pass the filter:
+    the posting index's answer, without walking it again).  So every
+    query kept saw the representatives the serial walk shows it.  The
+    k-mers are taken up front on ``threads`` threads.  Every sequence has
+    to be taken by ``identity.kernel_takes`` (up to about 524 kb), or the
+    launch raises.
+
+    Counts on the innermost span: ``identity.windows``, ``.launches``
+    (one a window with pairs: a launch of each kernel its bands take),
+    ``.pairs`` and ``.cells`` (those aligned in launches), ``.replayed``
+    (queries thrown away by a window that ended early) and
+    ``.replayed_pairs`` (their pairs)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from .. import native
+    from ..utils import trace
+    from . import identity
+    use_native = native.available()
+    kmer_fn = native.kmer_codes if use_native else kmer_set
+    workers = max(int(threads), 1) if use_native else 1
+    pool = ThreadPoolExecutor(workers) if workers > 1 else None
+    n = len(seqs)
+    order = sorted(range(n), key=lambda i: (-len(seqs[i]), i))
+    codes = {i: _encode(seqs[i]) for i in order}
+    lens = np.array([len(s) for s in seqs], np.int64)
+    offs = np.zeros(n, np.int64)
+    offs[1:] = np.cumsum(lens)[:-1]
+    corpus = []     # every sequence's codes on the device, sent once
+
+    def on_device(meta):
+        if not corpus:
+            flat = (np.concatenate([codes[i] for i in range(n)])
+                    if n else np.zeros(0, np.int8))
+            corpus.append(torch.from_numpy(flat).to(device))
+        trace.count("identity.launches")
+        trace.count("identity.pairs", meta.shape[1])
+        trace.count("identity.cells",
+                    int(identity.band_cells(meta[1], meta[3], band).sum()))
+        return identity.identities(identity.banded_matches(
+            corpus[0], meta, band).cpu().numpy(), meta)
+
+    def kmers_of(i):
+        return kmer_fn(codes[i], k)
+    kmers = dict(zip(order, pool.map(kmers_of, order) if pool is not None
+                     else map(kmers_of, order)))
+    clusters = []
+    exact = {}
+    posting = native.PostingIndex()
+    # a thrown-away query's candidates, and the clusters standing when the
+    # word filter gave them
+    carried = {}
+    pos = 0
+    while pos < n:
+        # the window: (query, its candidates, or None where exact places it)
+        window, pairs, cells = [], [], 0
+        p = pos
+        while p < n:
+            i = order[p]
+            if seqs[i] in exact:
+                window.append((i, None))
+                p += 1
+                continue
+            if pairs and (len(pairs) >= _WINDOW_PAIRS
+                          or cells >= _WINDOW_CELLS):
+                break
+            need = 0.25 * (threshold ** k) * max(len(seqs[i]) - k + 1, 1)
+            if i in carried:
+                # the posting index's answer now: the earlier candidates
+                # and each later founder that shares enough k-mers
+                cands, seen = carried.pop(i)
+                cands = cands + [
+                    ci for ci in range(seen, len(clusters))
+                    if native.intersect_count(
+                        kmers[i], kmers[clusters[ci].rep_index])
+                    >= need / word_filter_slack]
+            else:
+                cands = posting.query(kmers[i], need / word_filter_slack)
+            window.append((i, cands))
+            p += 1
+            if not cands:
+                break       # it founds a cluster: nothing after it is known
+            for ci in cands:
+                r = clusters[ci].rep_index
+                pairs.append((i, r))
+                cells += int(identity.band_cells(lens[i], lens[r], band))
+        standing = len(clusters)
+        trace.count("identity.windows")
+        ident = {}
+        if pairs:
+            q, r = np.array(pairs, np.int64).T
+            ident = dict(zip(pairs, on_device(
+                np.stack([offs[q], lens[q], offs[r], lens[r]]))))
+        # the walk, in order; the first founder ends the window
+        for at, (i, cands) in enumerate(window):
+            seq = seqs[i]
+            if cands is None:
+                clusters[exact[seq]].members.append((i, 1.0))
+                continue
+            for ci in cands:
+                got = ident[(i, clusters[ci].rep_index)]
+                if got >= threshold:
+                    clusters[ci].members.append((i, got))
+                    break
+            else:
+                exact[seq] = len(clusters)
+                posting.add(kmers[i], len(clusters))
+                clusters.append(Cluster(rep_index=i, members=[(i, None)]))
+                thrown = [(q, c) for q, c in window[at + 1:] if c is not None]
+                carried.update((q, (c, standing)) for q, c in thrown)
+                trace.count("identity.replayed", len(thrown))
+                trace.count("identity.replayed_pairs",
+                            sum(len(c) for _, c in thrown))
+                pos += at + 1
+                break
+        else:
+            pos = p
     if pool is not None:
         pool.shutdown()
     return order, clusters

@@ -166,6 +166,15 @@ _LAUNCHERS = {
         "stage_a_windows": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                             _PTR, _I64, _I64, _I64, _INT, _I64, _PTR),
         "stage_a_viterbi": (_PTR, _PTR, _PTR, _I64, _INT, _PTR)},
+    # the clusterer's banded identities: codes, meta [4, pairs], pairs,
+    # band, shift, key bits, then cells a lane (the register kernel) or
+    # the scratch row's stride and the scratch (the wide kernel), then
+    # out, stream
+    "banded_identity": {
+        "banded_identity": (_PTR, _PTR, _I64, _I64, _INT, _INT, _INT, _PTR,
+                            _PTR),
+        "banded_identity_wide": (_PTR, _PTR, _I64, _I64, _INT, _INT, _I64,
+                                 _PTR, _PTR, _PTR)},
 }
 
 

@@ -297,6 +297,8 @@ class Pipeline:
         # how the fan-out's pool started: its method, and for a forkserver
         # whether the server was up before this run asked for it
         self.pool = {"pool_start": None}
+        # launches of the clustering's banded-identity kernel in this run
+        self.identity_launches = 0
         self.server_warm = None
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
@@ -489,6 +491,7 @@ class Pipeline:
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
         info["find_hits_launches"] = ms.FIND_HITS_LAUNCHES
+        info["identity_launches"] = self.identity_launches
         info["scan_device_batches"] = vscan.DEVICE_BATCHES
         for key, n in self.kernel_launches.items():
             info[key + "_launches"] = n
@@ -522,10 +525,42 @@ class Pipeline:
         greedy.write_clstr(clusters, ids, seqs, out + ".clstr")
 
     def _cluster(self, fa, out):
-        from ..cluster import greedy
+        """The greedy clustering, placed once for the job: the serial walk
+        on the host (``greedy_cluster``) where MPTPU_FORCE_BACKEND says
+        host, or unforced on a CPU device or where the estimate of
+        ``identity.resolve_clustering`` puts it; else the windowed walk
+        with every window's banded identities on the device (the plain
+        version on a forced CPU device).  A job with a sequence past the
+        kernels' keys (about 524 kb) stays on the host, and a forced
+        device refuses it."""
+        from ..cluster import greedy, identity
+        from ..utils import link as linkmod
         ids, seqs = self._read_fasta(fa)
-        order, clusters = greedy.greedy_cluster(
-            ids, seqs, threshold=self.cfg.identity, threads=self.cfg.nproc)
+        cfg = self.cfg
+        forced = linkmod.forced_backend()
+        longest = max((len(s) for s in seqs), default=0)
+        fits = identity.kernel_takes(longest, longest, 64)
+        if forced == "device" and not fits:
+            raise ValueError(
+                "clustering: a %d-base sequence is past the banded-identity "
+                "kernels' keys; MPTPU_FORCE_BACKEND=host clusters it"
+                % longest)
+        on_device = forced == "device" or (
+            forced is None and self.device.type != "cpu" and fits
+            and identity.resolve_clustering(
+                [len(s) for s in seqs], cfg.nproc,
+                threshold=cfg.identity) == "device")
+        launched = identity.IDENTITY_LAUNCHES
+        if on_device:
+            order, clusters = greedy.greedy_cluster_windows(
+                ids, seqs, threshold=cfg.identity, threads=cfg.nproc,
+                device=self.device)
+            if self.device.type == "cuda":
+                linkmod.mark_device_warm()
+        else:
+            order, clusters = greedy.greedy_cluster(
+                ids, seqs, threshold=cfg.identity, threads=cfg.nproc)
+        self.identity_launches = identity.IDENTITY_LAUNCHES - launched
         greedy.write_representatives(clusters, ids, seqs, out)
         greedy.write_clstr(clusters, ids, seqs, out + ".clstr")
 

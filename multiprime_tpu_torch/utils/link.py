@@ -59,6 +59,15 @@ RATES = {
     # loading one built kernel library, s
     # (NVIDIA H100 80GB HBM3, 700.00 W; phase 16)
     "kernel_load_s": 0.00775,
+    # native banded identity (cluster/greedy.py), band cells/s a thread
+    # (host of NVIDIA H100 80GB HBM3, 700.00 W; phase 17, genome pairs)
+    "host_identity_cells_per_s": 2.22e8,
+    # the banded-identity kernel's cells/s over a window of 2,112 genome
+    # pairs (NVIDIA H100 80GB HBM3, 700.00 W; phase 17)
+    "device_identity_cells_per_s": 3.11e11,
+    # one DP row of a pair alone, s: a launch's floor is its longest pair's
+    # rows times this (NVIDIA H100 80GB HBM3, 700.00 W; phase 17)
+    "device_identity_row_s": 5.20e-7,
 }
 
 # host<->card link of the card's machine: pageable host memory to and from
@@ -157,6 +166,21 @@ def est_device_scan_s(total_bases, n_patterns, plen, n_batches,
     macs = 2.0 * total_bases * n_patterns * plen * 4
     t += macs / RATES["device_macs_per_s"]
     return t
+
+
+def est_host_identity_s(cells, threads):
+    """Host estimate for the clusterer's banded identities: their band
+    cells on ``threads`` native threads."""
+    return cells / (RATES["host_identity_cells_per_s"] * max(int(threads), 1))
+
+
+def est_device_identity_s(cells, rows, launches=1):
+    """Device estimate for the same identities in ``launches`` launches:
+    each its dispatch and its longest pair's ``rows`` at one row's
+    latency, plus the cells at the kernel's rate over a full card."""
+    return (launches * (LINK["dispatch_ms"] / 1e3
+                        + rows * RATES["device_identity_row_s"])
+            + cells / RATES["device_identity_cells_per_s"])
 
 
 def est_host_stagea_s(n_seqs, n_windows, plen):

@@ -1417,3 +1417,235 @@ def test_refine_msa_card_equals_host_at_genome_width(cuda, genome_family):
     assert adev.REFINE_DP_LAUNCHES - launched >= 2
     assert got == want
     assert peak <= adev._DP_BLOCK_BYTES + (32 << 20), peak
+
+
+def _identity_pairs(rng, n, lo, hi):
+    """n (query, representative) code pairs of lo..hi bases: two in three
+    related (2-40% substitutions, indels, Ns), the rest unrelated."""
+    codes, meta, at = [], [], 0
+    for k in range(n):
+        b = rng.integers(0, 4, size=int(rng.integers(lo, hi + 1)))
+        if k % 3 == 2:
+            a = rng.integers(0, 4, size=int(rng.integers(lo, len(b) + 1)))
+        else:
+            a = b.copy()
+            hit = rng.random(len(a)) < rng.uniform(0.02, 0.4)
+            a[hit] = rng.integers(0, 5, size=int(hit.sum()))
+            a = np.delete(a, rng.integers(0, len(a), size=int(
+                rng.integers(0, 30))))[:len(b)]
+        codes += [a.astype(np.int8), b.astype(np.int8)]
+        meta.append((at, len(a), at + len(a), len(b)))
+        at += len(a) + len(b)
+    return np.concatenate(codes), np.array(meta, np.int64).T
+
+
+def _native_identities(codes, meta):
+    from multiprime_tpu_torch import native
+    return [native.banded_identity(codes[q:q + lq], codes[r:r + lr], 64)
+            for q, lq, r, lr in meta.T.tolist()]
+
+
+@pytest.mark.parametrize("lo,hi", [(8200, 8400), (850, 950)])
+def test_banded_identity_kernel_equals_native(cuda, lo, hi):
+    """32 pairs at genome and at CDS length: the kernel's match counts
+    equal the plain version's on the card and its identities native's,
+    to the bit; some pairs reach the threshold and some do not."""
+    from multiprime_tpu_torch.cluster import identity
+    codes, meta = _identity_pairs(np.random.default_rng(lo), 32, lo, hi)
+    cd = torch.from_numpy(codes).to(cuda)
+    before = identity.IDENTITY_LAUNCHES
+    got = identity.banded_matches(cd, meta, 64).cpu().numpy()
+    assert identity.IDENTITY_LAUNCHES == before + 1
+    plain = identity.banded_matches_reference(cd, meta, 64).cpu().numpy()
+    assert np.array_equal(got, plain)
+    want = _native_identities(codes, meta)
+    assert identity.identities(got, meta) == want
+    assert 0 < sum(w >= 0.7 for w in want) < 32
+
+
+@pytest.mark.parametrize("la,bits", [(16383, 32), (16384, 64)])
+def test_banded_identity_kernel_at_the_32bit_key_limit(cuda, la, bits):
+    """Pairs on both sides of the 32-bit key's limit (S = 2**14 while la <
+    2**14) equal native; the plan takes the key width the lengths give."""
+    from multiprime_tpu_torch.cluster import identity
+    rng = np.random.default_rng(la)
+    a = rng.integers(0, 4, size=la).astype(np.int8)
+    b = a.copy()
+    hit = rng.random(la) < 0.1
+    b[hit] = rng.integers(0, 5, size=int(hit.sum()))
+    b = np.concatenate([b[:la // 2], b[la // 2 + 20:],
+                        rng.integers(0, 4, size=50).astype(np.int8)])
+    c = rng.integers(0, 4, size=la - 7).astype(np.int8)
+    codes = np.concatenate([a, b, c])
+    meta = np.array([[0, 0, la + len(b)], [la, la, la - 7],
+                     [la, la + len(b), la], [len(b), la - 7, len(b)]],
+                    np.int64)
+    assert identity.identity_plan(meta[1], meta[3], 64)[1] == bits
+    got = identity.banded_matches(torch.from_numpy(codes).to(cuda), meta, 64)
+    assert identity.identities(got.cpu().numpy(), meta) \
+        == _native_identities(codes, meta)
+
+
+def test_banded_identity_kernel_edge_grid(cuda):
+    """Empty sequences, swapped pairs (the query longer), bands at each
+    cells-a-lane step (widths 128-1,024) and past it into the wide kernel
+    (1,025, 1,026 and past its first chunks), all-N and all-equal pairs:
+    the kernels equal the plain version and native."""
+    from multiprime_tpu_torch.cluster import identity
+    rng = np.random.default_rng(7)
+    seqs = [np.zeros(0, np.int8), np.full(40, 4, np.int8),
+            rng.integers(0, 4, size=300).astype(np.int8)]
+    for diff in (0, 1, 127, 128, 129, 255, 256, 383, 384, 511, 512, 767,
+                 768, 895, 896, 897, 1151, 1700):
+        seqs.append(np.concatenate([seqs[2], rng.integers(
+            0, 5, size=diff).astype(np.int8)]))
+    offs = np.cumsum([0] + [len(s) for s in seqs])[:-1]
+    pairs = [(q, r) for q in range(len(seqs)) for r in range(len(seqs))
+             if identity.kernel_takes(len(seqs[q]), len(seqs[r]), 64)]
+    meta = np.array([[offs[q] for q, _ in pairs],
+                     [len(seqs[q]) for q, _ in pairs],
+                     [offs[r] for _, r in pairs],
+                     [len(seqs[r]) for _, r in pairs]], np.int64)
+    codes = np.concatenate(seqs)
+    cd = torch.from_numpy(codes).to(cuda)
+    for cut in (meta, meta[:, :5], meta[:, -3:]):
+        got = identity.banded_matches(cd, cut, 64).cpu().numpy()
+        plain = identity.banded_matches_reference(cd, cut, 64).cpu().numpy()
+        assert np.array_equal(got, plain)
+        assert identity.identities(got, cut) == _native_identities(codes, cut)
+
+
+@pytest.mark.parametrize("key_la", [2000, 16500])
+def test_banded_identity_wide_kernel_equals_native(cuda, key_la):
+    """Bands past the register kernel's 1,024 cells (a partial genome
+    beside a complete one, |lb - la| > 895) in 32- and 64-bit keys, in one
+    call with pairs the register kernel takes: every match count equals
+    the plain version's and every identity native's; the wide pairs take
+    a launch of their own."""
+    from multiprime_tpu_torch.cluster import identity
+    rng = np.random.default_rng(key_la)
+    full = rng.integers(0, 4, size=key_la + 1300).astype(np.int8)
+    seqs = [full]
+    for cut, div in ((900, 0.02), (1000, 0.1), (1300, 0.3), (0, 0.05)):
+        s = full[cut // 2:len(full) - cut + cut // 2].copy()
+        hit = rng.random(len(s)) < div
+        s[hit] = rng.integers(0, 5, size=int(hit.sum()))
+        seqs.append(np.delete(s, rng.integers(0, len(s), size=8)))
+    seqs.append(rng.integers(0, 4, size=key_la).astype(np.int8))
+    offs = np.cumsum([0] + [len(s) for s in seqs])[:-1]
+    pairs = [(q, 0) for q in range(1, len(seqs))] + [(0, 2), (5, 1)]
+    meta = np.array([[offs[q] for q, _ in pairs],
+                     [len(seqs[q]) for q, _ in pairs],
+                     [offs[r] for _, r in pairs],
+                     [len(seqs[r]) for _, r in pairs]], np.int64)
+    width = identity._width(meta[1], meta[3], 64)
+    assert (width > identity._MAX_WIDTH).sum() >= 4
+    assert (width <= identity._MAX_WIDTH).sum() >= 2
+    assert identity.identity_plan(meta[1], meta[3], 64)[1] == (
+        32 if key_la < 1 << 14 else 64)
+    codes = np.concatenate(seqs)
+    cd = torch.from_numpy(codes).to(cuda)
+    before = identity.IDENTITY_LAUNCHES
+    got = identity.banded_matches(cd, meta, 64).cpu().numpy()
+    assert identity.IDENTITY_LAUNCHES == before + 2
+    plain = identity.banded_matches_reference(cd, meta, 64).cpu().numpy()
+    assert np.array_equal(got, plain)
+    want = _native_identities(codes, meta)
+    assert identity.identities(got, meta) == want
+    assert max(want) >= 0.7
+
+
+def _cluster_corpus(seed, length, families, members, singletons,
+                    partial=0.0):
+    """Families of mutated copies of ``length``-ish bases and random
+    singletons; a ``partial`` share of the members cut to 86% of their
+    length (a partial genome beside complete ones)."""
+    rng = np.random.default_rng(seed)
+    lut = np.array(list("ACGT"))
+    seqs = []
+    for _ in range(families):
+        base = rng.integers(0, 4, size=length + int(rng.integers(0, 100)))
+        for _ in range(members):
+            s = base.copy()
+            hit = rng.random(len(s)) < 0.03
+            s[hit] = rng.integers(0, 4, size=int(hit.sum()))
+            s = np.delete(s, rng.integers(0, len(s), size=int(
+                rng.integers(0, 12))))
+            if rng.random() < partial:
+                s = s[:int(0.86 * len(s))]
+            seqs.append("".join(lut[s]))
+    for _ in range(singletons):
+        seqs.append("".join(lut[rng.integers(0, 4, size=length + int(
+            rng.integers(0, 100)))]))
+    return [str(i) for i in range(len(seqs))], seqs
+
+
+@pytest.mark.parametrize("length,window,partial", [
+    (8300, 2112, 0.0), (8300, 5, 0.0), (900, 2112, 0.0), (900, 1, 0.0),
+    (8300, 2112, 0.3)])
+def test_windowed_clusters_on_card_equal_host(cuda, length, window, partial,
+                                              monkeypatch):
+    """The windowed walk with every window on the card gives the serial
+    host walk's clusters, identities included, at genome length (the word
+    filter passes unrelated representatives) and at CDS length, with
+    windows cut short and whole, and with partial genomes of 7.1 kb beside
+    complete ones (bands past the register kernel: the wide kernel)."""
+    from multiprime_tpu_torch.cluster import greedy, identity
+    monkeypatch.setattr(greedy, "_WINDOW_PAIRS", window)
+    ids, seqs = _cluster_corpus(length, length, 3, 12, 4, partial)
+    if partial:
+        lens = [len(x) for x in seqs]
+        assert max(lens) - min(lens) > 895
+    want_order, want = greedy.greedy_cluster(ids, seqs, threads=4)
+    before = identity.IDENTITY_LAUNCHES
+    order, got = greedy.greedy_cluster_windows(ids, seqs, threads=4,
+                                               device=cuda)
+    assert order == want_order
+    assert [(c.rep_index, c.members) for c in got] \
+        == [(c.rep_index, c.members) for c in want]
+    assert identity.IDENTITY_LAUNCHES > before
+
+
+_CLUSTER_RUN = r"""
+import json, os, sys
+from multiprime_tpu_torch.cli import main as cli
+fa, res = sys.argv[1], sys.argv[2]
+rc = cli.main(["run", "-i", fa, "-r", res, "--nproc", "2", "--device",
+               "cuda"])
+assert rc == 0, rc
+with open(os.path.join(res, "pipeline_metrics.json")) as f:
+    print(json.dumps(json.load(f)["backends"]))
+"""
+
+
+def test_run_clusters_on_card_equal_host_and_fork_from_server(cuda,
+                                                              tmp_path):
+    """`run --nproc 2` with the host policies (Stage A on the host, the
+    native center-star) in fresh processes: with MPTPU_FORCE_BACKEND=device
+    the parent clusters on the card, so its CUDA context makes the fan-out
+    take the forkserver, and the .clstr equals the host run's byte for
+    byte."""
+    import json
+    import os
+    import subprocess
+    import sys
+    ids, seqs = _cluster_corpus(5, 900, 3, 15, 4)
+    fa = tmp_path / "in.fa"
+    fa.write_text("".join(">%s\n%s\n" % p for p in zip(ids, seqs)))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = {}
+    for side in ("host", "device"):
+        res = tmp_path / side
+        env = dict(os.environ, MPTPU_FORCE_BACKEND=side)
+        out = subprocess.run([sys.executable, "-c", _CLUSTER_RUN, str(fa),
+                              str(res)], capture_output=True, text=True,
+                             timeout=600, cwd=root, env=env)
+        assert out.returncode == 0, out.stderr[-4000:]
+        clstr = res / "Total_fa" / "in.format.rmdup.cluster.uniq.fa.clstr"
+        got[side] = (json.loads(out.stdout.strip().splitlines()[-1]),
+                     clstr.read_bytes())
+    (host, host_clstr), (dev, dev_clstr) = got["host"], got["device"]
+    assert dev_clstr == host_clstr
+    assert host["identity_launches"] == 0
+    assert dev["identity_launches"] > 0
+    assert dev["pool_start"] == "forkserver"
