@@ -31,11 +31,13 @@ the final line):
    a device scan whose hits overflow the first max_hits (the retry);
 4. `run` through the CLI in a subprocess on the seeded 21k-sequence corpus
    (20 families x 1000 members + 1000 singletons, 900 bp), its find_hits
-   launches equal to its scan's device batches, then the rule-19 scan
+   launches (its backends' ``launches``) equal to its scan's device
+   batches (``counted_batches`` in CLI_DRIVER), then the rule-19 scan
    rerun on the host backend: BWT_coverage outputs byte-identical; the
    hit-code and find_hits kernels timed at the run's batch shape;
 5. `scan` through the CLI on the run's aggregated candidate set against
-   the 21k targets, device vs host byte-identical; then -m 4 on 4200
+   the 21k targets, device vs host byte-identical, find_hits once a
+   device batch (``counted_batches``); then -m 4 on 4200
    targets on the device, held to the plain version through find_hits;
 6. the match-count and bitmap kernels against their plain versions, exact,
    on edge-case grids (the bitmap on phase 2's grid, with raw IUPAC masks
@@ -58,8 +60,8 @@ the final line):
    pipeline_metrics.json and logs), Stage A and the align DP served by the
    card, the Stage-A windows kernel launched once for each of the run's
    Stage-A blocks, the Gotoh kernel once for each of its Gotoh blocks (the
-   warp kernel for every block no wider than its limit), find_hits once
-   for each device batch of its scan; both runs' stage seconds;
+   warp kernel for every block no wider than its limit), find_hits as
+   often as phase 4's run of the same scan; both runs' stage seconds;
 10. the device ops on the largest cluster of that run, each equal to its
    counterpart and timed: design_stats_blocks on the card vs the CPU (and
    the cluster's design with host vs device Stage A, the three Stage-A
@@ -148,6 +150,7 @@ CUDA device is available or the package is not beside this script.
 """
 
 import argparse
+import contextlib
 import filecmp
 import glob
 import json
@@ -161,6 +164,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from multiprime_tpu_torch.ops import _cuda
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -206,6 +211,43 @@ def fail(msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+# the banded-identity launchers: the register kernel and the wide one
+IDENTITY = ("banded_identity", "banded_identity_wide")
+
+
+def launched(before, *prefixes):
+    """The launches of ``prefixes``, summed, since ``before`` (a
+    ``_cuda.launches()``)."""
+    now = _cuda.launches()
+    return sum(now[p] - before[p] for p in prefixes)
+
+
+@contextlib.contextmanager
+def counted_batches():
+    """Count, in the one-item list it yields, the device batches the scans
+    inside the block hand the find_hits kernels: each batch of
+    ``find_hits_batched``, each shard of a ``find_hits_sharded`` call.
+    A scan launches find_hits once a batch, retries included."""
+    from multiprime_tpu_torch.ops import mismatch_scan as ms
+    from multiprime_tpu_torch.parallel import mesh as pmesh
+    n = [0]
+    batched, sharded = ms.find_hits_batched, pmesh.find_hits_sharded
+
+    def count_batched(target_masks, *a, **kw):
+        n[0] += target_masks.shape[0]
+        return batched(target_masks, *a, **kw)
+
+    def count_sharded(mesh, *a, **kw):
+        n[0] += mesh.devices.size
+        return sharded(mesh, *a, **kw)
+    ms.find_hits_batched, pmesh.find_hits_sharded = (count_batched,
+                                                     count_sharded)
+    try:
+        yield n
+    finally:
+        ms.find_hits_batched, pmesh.find_hits_sharded = batched, sharded
 
 
 def device_env():
@@ -318,7 +360,6 @@ def grid_patterns(ms, rng, seqs, n_pat, plen, term):
 
 
 def phase_build(args, report):
-    from multiprime_tpu_torch.ops import _cuda
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -590,21 +631,21 @@ def measure_find_hits(ms, masks, lens, p1h, s1h, mm, term, max_hits, label):
     tl = torch.from_numpy(lens).to(dev)
     planes, sfx = ms.pack_patterns(p1h, s1h, device=dev)
     kw = dict(plen=plen, mm=mm, term=term, max_hits=max_hits)
-    ms.FIND_HITS_LAUNCHES = 0
+    before = _cuda.launches()
     got = ms.find_hits(tm, tl, planes, sfx, **kw)
-    launches = ms.FIND_HITS_LAUNCHES
+    n_launches = launched(before, "find_hits")
     want = ms.find_hits_reference(tm, tl, planes, sfx, **kw)
     torch.cuda.synchronize()
     max_err = max(int((g - w).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
-    if max_err != 0 or launches != 1:
+    if max_err != 0 or n_launches != 1:
         fail("find_hits differs from its plain version at the %s (%d "
-             "launches)" % (label, launches))
+             "launches)" % (label, n_launches))
     n_hits = int(got[1])
     del want
-    ms.HIT_CODES_LAUNCHES = 0
+    before = _cuda.launches()
     codes = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term)
-    codes_launches = ms.HIT_CODES_LAUNCHES
+    codes_launches = launched(before, "hit_codes")
     n, n_out, p_all = codes.shape
     inside = (torch.arange(n_out, device=dev)[None, :] + plen) \
         <= tl.long()[:, None]
@@ -638,7 +679,7 @@ def measure_find_hits(ms, masks, lens, p1h, s1h, mm, term, max_hits, label):
     out = {"shape": {"N": n, "L": masks.shape[1], "O": n_out, "P": p_all,
                      "plen": plen, "mm": mm, "term": term,
                      "max_hits": max_hits, "windows_inside": windows},
-           "hits": n_hits, "max_abs_err": max_err, "launches": launches,
+           "hits": n_hits, "max_abs_err": max_err, "launches": n_launches,
            "hit_codes_launches": codes_launches, "ms": kernel_ms,
            "plain_ms": plain_ms, "codes_path_ms": codes_path_ms,
            "compaction_ms": compaction_ms, "library_ms": library_ms,
@@ -795,34 +836,24 @@ def phase_run(args, report, work):
             args.families, args.members, args.singletons, n_seqs,
             time.time() - t0, " [CUT from 20 x 1000 + 1000]" if cut else ""))
     res = os.path.join(work, "res")
-    log_path = os.path.join(work, "run.log")
-    env = device_env()
     nproc = os.cpu_count() or 1
-    cmd = [sys.executable, "-m", "multiprime_tpu_torch.cli.main", "run",
-           "-i", fa, "-r", res, "--device", DEVICE, "--pcr-products",
-           "summary", "--nproc", str(nproc)]
-    # the run is a process of its own: its kernel launch count starts at 0
-    # there and comes back in pipeline_metrics.json
-    t0 = time.time()
-    with open(log_path, "w") as log:
-        rc = subprocess.run(cmd, cwd=HERE, env=env, stdout=log,
-                            stderr=subprocess.STDOUT).returncode
-    wall = time.time() - t0
-    if rc != 0:
-        with open(log_path) as log:
-            tail = log.read()[-4000:]
-        fail("run exited %d:\n%s" % (rc, tail))
+    # the run is a process of its own (CLI_DRIVER): its kernel launches
+    # come back in pipeline_metrics.json, its scan's device batches in the
+    # side file
+    side = run_cli(["run", "-i", fa, "-r", res, "--device", DEVICE,
+                    "--pcr-products", "summary", "--nproc", str(nproc)],
+                   work, "run")
+    wall = side["process_s"]
     with open(os.path.join(res, "pipeline_metrics.json")) as f:
         metrics = json.load(f)
     backends = metrics["backends"]
-    launches = int(backends.get("find_hits_launches", 0))
-    batches = int(backends.get("scan_device_batches", -1))
+    n_launches = backends["launches"]["find_hits"]
     say("phase 4 run: %.1f s wall, nproc=%d, scan_backend=%s, device=%s, "
         "find_hits launches=%d for %d device batches of its scan"
         % (wall, nproc, backends.get("scan_backend"),
-           backends.get("device_name"), launches, batches))
+           backends.get("device_name"), n_launches, side["batches"]))
     say("phase 4 stages (s): " + json.dumps(metrics["timings_s"]))
-    if launches <= 0 or launches != batches \
+    if n_launches <= 0 or n_launches != side["batches"] \
             or backends.get("scan_backend") != "device":
         fail("run did not scan through the find_hits kernels once a batch")
     # rerun the rule-19 scan on the host backend: byte-identical outputs
@@ -856,8 +887,9 @@ def phase_run(args, report, work):
         % (name, rows, host_s, metrics["timings_s"].get("scan", -1)))
     report["run"] = {"wall_s": wall, "nproc": nproc, "n_seqs": n_seqs,
                      "cut": cut, "timings_s": metrics["timings_s"],
-                     "launches": launches, "scan_device_batches": batches,
-                     "bwt_rows": rows, "host_rescan_s": host_s}
+                     "launches": n_launches, "batches": side["batches"],
+                     "bwt_rows": rows,
+                     "host_rescan_s": host_s}
     # the kernel at the shape this run's rule-19 scan gave it: the first
     # target batch of the formatted corpus against the core set's patterns
     from multiprime_tpu_torch.ops import mismatch_scan as ms
@@ -874,7 +906,7 @@ def phase_run(args, report, work):
     report["find_hits_run_shape"] = measure_find_hits(
         ms, masks, lens, p1h, s1h, 1, 1, 1 << 17, "phase 4 at the run's "
         "shape")
-    return res, launches
+    return res, n_launches
 
 
 def phase_scan(args, report, work, res):
@@ -911,26 +943,24 @@ def phase_scan(args, report, work, res):
     for backend in ("device", "numpy"):
         outs[backend] = os.path.join(work, "scan_" + backend, "cov.out")
         os.makedirs(os.path.dirname(outs[backend]))
-        ms.FIND_HITS_LAUNCHES = 0
-        vscan.DEVICE_BATCHES = 0
+        before = _cuda.launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        rc = cli.main(["scan", *flags, "-o", outs[backend], "--backend",
-                       backend, "--device", DEVICE])
+        with counted_batches() as batches:
+            rc = cli.main(["scan", *flags, "-o", outs[backend], "--backend",
+                           backend, "--device", DEVICE])
         torch.cuda.synchronize()
         walls[backend] = time.time() - t0
         peaks[backend] = torch.cuda.max_memory_allocated()
         if rc != 0:
             fail("scan --backend %s exited %d" % (backend, rc))
-        launches = scan_launches[backend] = ms.FIND_HITS_LAUNCHES
-        if backend == "device" and (launches <= 0
-                                    or launches != vscan.DEVICE_BATCHES):
-            fail("scan made %d find_hits launches for %d device batches"
-                 % (launches, vscan.DEVICE_BATCHES))
+        n = scan_launches[backend] = launched(before, "find_hits")
+        if (n > 0) != (backend == "device") or n != batches[0]:
+            fail("scan --backend %s made %d find_hits launches for %d "
+                 "device batches" % (backend, n, batches[0]))
         say("phase 5 scan --backend %s: %.2f s wall, peak device memory "
             "%.1f MiB, find_hits launches %d" % (
-                backend, walls[backend], peaks[backend] / 2 ** 20,
-                launches))
+                backend, walls[backend], peaks[backend] / 2 ** 20, n))
     diff = same_outputs(outs["device"], outs["numpy"])
     if diff is not None:
         fail("scan outputs differ between device and host: cov.out" + diff)
@@ -1060,15 +1090,15 @@ def phase_bitmap(args, report, res, pats):
     pad_len = max(-longest % 512 + longest, 512)
     p1h, s1h = pattern_onehots(ms, pats, term)
     t1h, lens = ms.encode_targets(seqs, length=pad_len)
-    # the path: one call, its launches counted from 0
-    ms.HIT_WINDOW_BITMAP_LAUNCHES = 0
+    # the path: one call, its launches counted
+    before = _cuda.launches()
     torch.cuda.synchronize()
     t0 = time.time()
     got = ms.find_hits_bitmap(t1h, lens, p1h, s1h, mm=mm, term=term,
                               device=dev)
     wall = time.time() - t0
-    launches = ms.HIT_WINDOW_BITMAP_LAUNCHES
-    if launches <= 0:
+    n_launches = launched(before, "hit_window_bitmap")
+    if n_launches <= 0:
         fail("find_hits_bitmap did not launch the hit_window_bitmap kernel")
     del t1h
     # find_hits (the hit-code kernel) over the batches of the scan
@@ -1103,15 +1133,15 @@ def phase_bitmap(args, report, res, pats):
     flagged = int(bm.sum())
     say("phase 7 find_hits_bitmap: %d targets x %d patterns, %.2f s wall, "
         "%d launch(es), %d flagged windows, %d hits == find_hits over %d "
-        "batches (%.2f s wall)" % (len(seqs), p_all, wall, launches, flagged,
-                                   len(got[0]), -(-len(seqs) // bs),
+        "batches (%.2f s wall)" % (len(seqs), p_all, wall, n_launches,
+                                   flagged, len(got[0]), -(-len(seqs) // bs),
                                    dense_wall))
-    report["bitmap_path"] = {"wall_s": wall, "launches": launches,
+    report["bitmap_path"] = {"wall_s": wall, "launches": n_launches,
                              "flagged_windows": flagged, "hits": len(got[0]),
                              "find_hits_wall_s": dense_wall}
     report["hit_window_bitmap"] = measure_bitmap(ms, tm, planes, sfx, plen,
                                                  mm, term, bs)
-    report["hit_window_bitmap"]["launches"] = launches
+    report["hit_window_bitmap"]["launches"] = n_launches
 
 
 def measure_bitmap(ms, tm, planes, sfx, plen, mm, term, bs):
@@ -1197,23 +1227,22 @@ def phase_dimer(args, report, primers_fa):
     primers = uniq[:DIMER_PRIMERS]
     cut = "" if len(primers) == len(uniq) else (
         " [CUT from %d unique primers]" % len(uniq))
-    walls, launches = {}, {}
+    walls, path_launches = {}, {}
     t_phase = time.time()
     mats = {}
     # the fused path through the dimer_fired kernel alone, the unfused one
     # through the match-count kernel alone
     for fn, kernel in (("dimer_hit_matrix_fused", "dimer_fired"),
                        ("dimer_hit_matrix", "match_counts")):
-        ms.MATCH_COUNTS_LAUNCHES = 0
-        dimer.DIMER_FIRED_LAUNCHES = 0
+        before = _cuda.launches()
         torch.cuda.synchronize()
         t0 = time.time()
         mats[fn] = getattr(dimer, fn)(primers, device=dev)
         torch.cuda.synchronize()
         walls[fn] = time.time() - t0
-        counts = {"dimer_fired": dimer.DIMER_FIRED_LAUNCHES,
-                  "match_counts": ms.MATCH_COUNTS_LAUNCHES}
-        launches[fn] = counts[kernel]
+        counts = {k: launched(before, k)
+                  for k in ("dimer_fired", "match_counts")}
+        path_launches[fn] = counts[kernel]
         if counts[kernel] <= 0 or sum(counts.values()) != counts[kernel]:
             fail("%s launched %s, not the %s kernel alone"
                  % (fn, counts, kernel))
@@ -1235,20 +1264,21 @@ def phase_dimer(args, report, primers_fa):
         "fused %.2f s (%d launches), unfused %.2f s (%d launches); equal, "
         "%d dimer pairs; sample of %d == verify_against_host (%.2f s)"
         % (len(primers), cut, n_t, n_e, walls["dimer_hit_matrix_fused"],
-           launches["dimer_hit_matrix_fused"], walls["dimer_hit_matrix"],
-           launches["dimer_hit_matrix"], int(hit.sum()), len(sample),
+           path_launches["dimer_hit_matrix_fused"],
+           walls["dimer_hit_matrix"], path_launches["dimer_hit_matrix"],
+           int(hit.sum()), len(sample),
            host_s))
     report["dimer"] = {"P": len(primers), "unique": len(uniq), "T": n_t,
-                       "E": n_e, "wall_s": walls, "launches": launches,
+                       "E": n_e, "wall_s": walls, "launches": path_launches,
                        "pairs": int(hit.sum()), "sample": len(sample),
                        "host_sample_s": host_s,
                        "phase_s": time.time() - t_phase}
     report["match_counts"] = measure_counts(ms, dimer, lay, dev)
-    report["match_counts"]["launches"] = launches["dimer_hit_matrix"]
+    report["match_counts"]["launches"] = path_launches["dimer_hit_matrix"]
     cases = dimer_grid_equal(dimer, ms, dev, rng)
     report["dimer_fired"] = measure_dimer_fired(ms, dimer, lay, dev)
     report["dimer_fired"].update(
-        launches=launches["dimer_hit_matrix_fused"], grid_cases=cases)
+        launches=path_launches["dimer_hit_matrix_fused"], grid_cases=cases)
 
 
 def dimer_edge_inputs(ms, rng, lp, width=None, n_t=37, n_e=300):
@@ -1475,19 +1505,18 @@ def phase_device_run(args, report, work, res):
         metrics = json.load(f)
     backends = metrics["backends"]
     stage_a, align = backends["stage_a_served"], backends["align_served"]
-    find_launches = int(backends.get("find_hits_launches", 0))
-    batches = int(backends.get("scan_device_batches", -1))
+    run_launches = backends["launches"]
+    find_launches = run_launches["find_hits"]
     say("phase 9 device run: %.1f s wall, nproc=%d, device=%s, Stage A "
-        "served %s, align served %s, find_hits launches=%d for %d device "
-        "batches of its scan"
+        "served %s, align served %s, find_hits launches=%d"
         % (wall, nproc, backends.get("device_name"), json.dumps(stage_a),
-           json.dumps(align), find_launches, batches))
+           json.dumps(align), find_launches))
     if set(stage_a) != {"device"} or set(align) - {"device", "none"} \
             or align.get("device", 0) <= 0:
         fail("the device run's Stage A or align DP did not run on the card")
-    if find_launches <= 0 or find_launches != batches:
-        fail("the device run made %d find_hits launches for %d device "
-             "batches" % (find_launches, batches))
+    if find_launches <= 0 or find_launches != report["run"]["launches"]:
+        fail("the device run made %d find_hits launches, phase 4's run of "
+             "the same scan %d" % (find_launches, report["run"]["launches"]))
     diff = tree_diff(host_res, res)
     if diff is not None:
         fail("device run output %s differs from phase 4's host run" % diff)
@@ -1504,7 +1533,7 @@ def phase_device_run(args, report, work, res):
     # blocks the run's MSAs call for
     from multiprime_tpu_torch.align import device as adev
     _, design_blocks, gotoh_blocks, wide_blocks = run_blocks(res)
-    stage_a_launches = backends.get("stage_a_kernel_launches", 0)
+    stage_a_launches = run_launches["stage_a_windows"]
     say("phase 9 Stage-A windows kernel launches %d for the run's %d "
         "Stage-A blocks (design stage %s s summed over workers, host run %s "
         "s)" % (stage_a_launches, design_blocks, dev_t.get("design"),
@@ -1512,15 +1541,16 @@ def phase_device_run(args, report, work, res):
     if stage_a_launches != design_blocks:
         fail("the device run made %d Stage-A kernel launches for %d Stage-A "
              "blocks" % (stage_a_launches, design_blocks))
-    gotoh_launches = backends.get("gotoh_dp_launches", 0)
-    warp_launches = backends.get("gotoh_dp_warp_launches", 0)
+    gotoh_launches = run_launches["gotoh_dp"] + run_launches["gotoh_dp_warp"]
+    warp_launches = run_launches["gotoh_dp_warp"]
+    refine_launches = run_launches["refine_dp"] + run_launches["refine_dp_warp"]
     say("phase 9 align stage %s s summed over workers (host run %s s); "
         "gotoh_dp launches %d for gotoh_blocks_per_run %d, %d of them of "
         "gotoh_dp_warp_kernel (%d blocks of MSAs wider than its %d "
         "columns); refine_dp launches %d (refine_msa takes native)"
         % (dev_t.get("align"), host_t.get("align"), gotoh_launches,
            gotoh_blocks, warp_launches, wide_blocks, adev._GOTOH_WARP_MAX_COLS,
-           backends.get("refine_dp_launches", 0)))
+           refine_launches))
     if gotoh_launches != gotoh_blocks:
         fail("the device run made %d gotoh_dp launches for %d Gotoh blocks"
              % (gotoh_launches, gotoh_blocks))
@@ -1535,13 +1565,11 @@ def phase_device_run(args, report, work, res):
                             "host_timings_s": host_t,
                             "gotoh_dp_launches": gotoh_launches,
                             "gotoh_dp_warp_launches": warp_launches,
-                            "refine_dp_launches": backends.get(
-                                "refine_dp_launches", 0),
-                            "refine_dp_warp_launches": backends.get(
-                                "refine_dp_warp_launches", 0),
+                            "refine_dp_launches": refine_launches,
+                            "refine_dp_warp_launches": run_launches[
+                                "refine_dp_warp"],
                             "stage_a_kernel_launches": stage_a_launches,
                             "find_hits_launches": find_launches,
-                            "scan_device_batches": batches,
                             "design_blocks_per_run": design_blocks,
                             "gotoh_blocks_per_run": gotoh_blocks}
     shutil.rmtree(host_res, ignore_errors=True)
@@ -1729,15 +1757,11 @@ def profiled_launches(fn, kernel_name):
             sum(v[0] for v in prof.values()), prof)
 
 
-def zero_stage_a_counts(ds):
-    ds.STAGE_A_ROWS_LAUNCHES = ds.STAGE_A_LAUNCHES = 0
-    ds.STAGE_A_VITERBI_LAUNCHES = 0
-
-
-def stage_a_counts(ds):
-    """The launches of the three Stage-A kernels in this process."""
-    return {"rows": ds.STAGE_A_ROWS_LAUNCHES, "windows": ds.STAGE_A_LAUNCHES,
-            "viterbi": ds.STAGE_A_VITERBI_LAUNCHES}
+def stage_a_counts(before):
+    """The launches of the three Stage-A kernels since ``before`` (a
+    ``_cuda.launches()``)."""
+    return {k: launched(before, "stage_a_" + k)
+            for k in ("rows", "windows", "viterbi")}
 
 
 def stage_a_grid_equal(dev):
@@ -1777,7 +1801,6 @@ def measure_stage_a(dev, masks, positions, nb, report):
     time (torch.profiler), the plain version's time and launches, and the
     block's bound; then the edge grid."""
     import torch
-    from multiprime_tpu_torch.ops import _cuda
     from multiprime_tpu_torch.ops import design_scan as ds
     plen, variation = 18, 1
     masks_d = torch.from_numpy(np.ascontiguousarray(masks, np.int32)).to(dev)
@@ -1912,11 +1935,11 @@ def phase_device_ops(args, report, res):
         e = mcdpd.DesignEngine(mcdpd.DesignParams(
             coverage=0.7, min_product=150, coordinate="2,3,-1",
             stage_a=backend, device=dev))
-        zero_stage_a_counts(design_scan)
+        before = _cuda.launches()
         t0 = time.perf_counter()
         rows = e.design(ids, chars)
         walls[backend] = time.perf_counter() - t0
-        counts = stage_a_counts(design_scan)
+        counts = stage_a_counts(before)
         if backend == "host":
             host_rows = [(r.position, r.primer, r.coverage) for r in rows]
         elif [(r.position, r.primer, r.coverage) for r in rows] != host_rows:
@@ -1953,12 +1976,11 @@ def phase_device_ops(args, report, res):
     codes = [centerstar._encode(s) for s in seqs]
     center = centerstar.pick_center(seqs)
     members = [codes[m] for m in range(len(seqs)) if m != center]
-    before = adev.GOTOH_DP_LAUNCHES
-    before_warp = adev.GOTOH_DP_WARP_LAUNCHES
+    before = _cuda.launches()
     got = adev.align_ops_batch_device(codes[center], members,
                                       as_codes=True, device=dev)
-    cluster_launches = adev.GOTOH_DP_LAUNCHES - before
-    cluster_warp = adev.GOTOH_DP_WARP_LAUNCHES - before_warp
+    cluster_launches = launched(before, "gotoh_dp", "gotoh_dp_warp")
+    cluster_warp = launched(before, "gotoh_dp_warp")
     nat = native.gotoh_ops_batch(codes[center], members)
     if nat is None:
         fail("native.gotoh_ops_batch is unavailable")
@@ -2070,10 +2092,10 @@ def phase_device_ops(args, report, res):
     # refine kernel
     rows = centerstar._merge_rows_vec(
         seqs, center, [m for m in range(len(seqs)) if m != center], got)
-    adev.REFINE_DP_LAUNCHES = adev.REFINE_DP_WARP_LAUNCHES = 0
+    before = _cuda.launches()
     got_rows = refine.refine_pass(rows, backend="device", device=dev)
-    refine_launches = adev.REFINE_DP_LAUNCHES
-    refine_warp = adev.REFINE_DP_WARP_LAUNCHES
+    refine_launches = launched(before, "refine_dp", "refine_dp_warp")
+    refine_warp = launched(before, "refine_dp_warp")
     _, ref_ms, ref_peak = timed(lambda: refine.refine_pass(
         rows, backend="device", device=dev))
     t0 = time.perf_counter()
@@ -2267,8 +2289,9 @@ PEAK_PREDICTED_MIB = (200, 400)
 CLI_DRIVER = r"""
 import json, sys, time
 import torch
+import chip_smoke
 from multiprime_tpu_torch.cli import main as cli
-from multiprime_tpu_torch.ops import mismatch_scan as ms
+from multiprime_tpu_torch.ops import _cuda
 from multiprime_tpu_torch.validate import scan as vscan
 calls = []
 scan_long = vscan.scan_hits_long
@@ -2280,9 +2303,10 @@ def timed(*a, **kw):
     return out
 vscan.scan_hits_long = timed
 t0 = time.time()
-rc = cli.main(sys.argv[2:])
+with chip_smoke.counted_batches() as batches:
+    rc = cli.main(sys.argv[2:])
 side = {"rc": rc, "wall_s": time.time() - t0, "scans": calls,
-        "launches": ms.FIND_HITS_LAUNCHES, "batches": vscan.DEVICE_BATCHES,
+        "launches": _cuda.launches()["find_hits"], "batches": batches[0],
         "backend": vscan.LAST_BACKEND,
         "peak_bytes": torch.cuda.max_memory_allocated()
         if torch.cuda.is_initialized() else 0}
@@ -2753,11 +2777,11 @@ def phase_mesh(args, report, work, res, keys):
     single = list(design_scan.design_stats_blocks(masks, positions,
                                                   device=dev))
     single_s = time.perf_counter() - t0
-    zero_stage_a_counts(design_scan)
+    before = _cuda.launches()
     t0 = time.perf_counter()
     sharded = list(pmesh.design_stats_blocks_sharded(mesh, masks, positions))
     sharded_s = time.perf_counter() - t0
-    counts = stage_a_counts(design_scan)
+    counts = stage_a_counts(before)
     if len(single) != len(sharded):
         fail("design_stats_blocks_sharded gave %d blocks, unsharded %d"
              % (len(sharded), len(single)))
@@ -2788,11 +2812,11 @@ def phase_mesh(args, report, work, res, keys):
                                              "scale21k.format.fa"))
     p1h, s1h = pattern_onehots(ms, keys, 1)
     t1h, lens = ms.encode_targets(seqs[:512])
-    ms.MATCH_COUNTS_LAUNCHES = 0
+    before = _cuda.launches()
     hits, covered = pmesh.coverage_counts_sharded(mesh, t1h, lens, p1h, s1h,
                                                   mm=1, term=1)
     torch.cuda.synchronize()
-    cov_launches = ms.MATCH_COUNTS_LAUNCHES
+    cov_launches = launched(before, "match_counts")
     counts = ms.match_counts(t1h, p1h, device=dev)
     ok = (18 - counts) <= 1
     del counts
@@ -2818,19 +2842,18 @@ def phase_mesh(args, report, work, res, keys):
     t0 = time.time()
     want = vscan.scan_hits(seqs, keys, vscan.ScanParams(**params), dev)
     single_s = time.time() - t0
-    ms.FIND_HITS_LAUNCHES = 0
-    vscan.DEVICE_BATCHES = 0
+    before = _cuda.launches()
     t0 = time.time()
-    with pmesh.use_mesh(mesh):
+    with pmesh.use_mesh(mesh), counted_batches() as batches:
         got = vscan.scan_hits(seqs, keys, vscan.ScanParams(**params), dev)
     torch.cuda.synchronize()
     sharded_s = time.time() - t0
-    scan_launches = ms.FIND_HITS_LAUNCHES
+    scan_launches = launched(before, "find_hits")
     if vscan.LAST_BACKEND != "device-sharded" or scan_launches <= 0 \
-            or scan_launches != vscan.DEVICE_BATCHES:
+            or scan_launches != batches[0]:
         fail("the scan under the mesh ran %s with %d find_hits launches for "
              "%d batch shards" % (vscan.LAST_BACKEND, scan_launches,
-                                  vscan.DEVICE_BATCHES))
+                                  batches[0]))
     if got != want:
         fail("scan_hits under the mesh differs from the unsharded device "
              "scan (%d vs %d hits)" % (len(got), len(want)))
@@ -2848,39 +2871,39 @@ def phase_mesh(args, report, work, res, keys):
     kw = dict(input_fa=fa, results_dir=cut_res, device=DEVICE,
               stage_a="device", pcr_products="summary",
               nproc=os.cpu_count() or 1)
-    from multiprime_tpu_torch.cluster import identity
     with forced_device():
-        # the clustering's banded-identity launches of this run alone
-        identity.IDENTITY_LAUNCHES = 0
+        # the clustering and the scan run in this process: their launches
+        # in each run are what its backends print
+        before = _cuda.launches()
         t0 = time.time()
         single, _ = run_pipeline(None, **kw)
         single_s = time.time() - t0
-        identity_launches = identity.IDENTITY_LAUNCHES
+        identity_launches = launched(before, *IDENTITY)
+        # a run's backends count from its start: read before the next run
+        printed = sum(single._backends()["launches"][k] for k in IDENTITY)
         os.rename(cut_res, cut_res + "_single")
-        ms.FIND_HITS_LAUNCHES = 0
-        vscan.DEVICE_BATCHES = 0
+        before = _cuda.launches()
         t0 = time.time()
-        with pmesh.use_mesh(mesh):
+        with pmesh.use_mesh(mesh), counted_batches() as batches:
             pipe, _ = run_pipeline(None, **kw)
         mesh_s = time.time() - t0
-        run_launches = ms.FIND_HITS_LAUNCHES
-        run_batches = vscan.DEVICE_BATCHES
+        run_launches = launched(before, "find_hits")
     backends = pipe._backends()
     served = backends["stage_a_served"]
-    stage_a_run = backends["stage_a_kernel_launches"]
+    stage_a_run = backends["launches"]["stage_a_windows"]
     if set(served) != {"device-sharded"} or run_launches <= 0 \
-            or run_launches != run_batches or stage_a_run <= 0 \
+            or run_launches != batches[0] \
+            or backends["launches"]["find_hits"] != run_launches \
+            or stage_a_run <= 0 \
             or backends.get("scan_backend") != "device-sharded":
         fail("the run under the mesh: Stage A served %s, scan %s, %d "
-             "find_hits launches for %d batch shards, %d Stage-A kernel "
-             "launches" % (served, backends.get("scan_backend"),
-                           run_launches, run_batches, stage_a_run))
-    single_backends = single._backends()
-    if identity_launches <= 0 or \
-            single_backends["identity_launches"] != identity_launches:
+             "find_hits launches for %d batch shards (its backends print "
+             "%d), %d Stage-A kernel launches"
+             % (served, backends.get("scan_backend"), run_launches,
+                batches[0], backends["launches"]["find_hits"], stage_a_run))
+    if identity_launches <= 0 or printed != identity_launches:
         fail("the run without the mesh made %d banded_identity launches; "
-             "its backends print %s" % (identity_launches,
-                                        single_backends["identity_launches"]))
+             "its backends print %s" % (identity_launches, printed))
     say("phase 14 run without the mesh: its clustering made %d "
         "banded_identity launches, as its backends print"
         % identity_launches)
@@ -3303,7 +3326,7 @@ def phase_identity(args, report):
     from multiprime_tpu_torch.cluster import identity
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(args.seed + 17)
-    launched = identity.IDENTITY_LAUNCHES
+    before = _cuda.launches()
     out = {}
     errs = []
 
@@ -3392,7 +3415,7 @@ def phase_identity(args, report):
         say("phase 17 identity la %d lb %d: %d-bit keys, equal native"
             % (la, len(b), plan[1]))
     out["max_abs_err"] = max(errs)
-    out["timing_launches"] = identity.IDENTITY_LAUNCHES - launched
+    out["timing_launches"] = launched(before, *IDENTITY)
     report["identity"] = out
     fit_identity(report)
     identity_jobs(args, report)
@@ -3648,7 +3671,7 @@ def main():
     phase(3, phase_find_hits)
     work = tempfile.mkdtemp(prefix="mptpu_smoke_")
     try:
-        res, launches = phase(4, phase_run, work)
+        res, run_find_hits = phase(4, phase_run, work)
         primers, keys = phase(5, phase_scan, work, res)
         phase(6, phase_new_kernels)
         phase(7, phase_bitmap, res, keys)
@@ -3665,12 +3688,11 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the launches of the find_hits kernels on every path that drove them,
-    # each counted from 0 over that path alone (the CLI paths each in a
-    # process of its own), each equal to the path's device batches; the
-    # run's rule-19 scan is the main path
+    # each counted over that path alone (the CLI paths each in a process
+    # of its own); the run's rule-19 scan is the main path
     spec = report["specificity"]["runs"]
     mesh = report["mesh"]
-    by_path = {"run": launches,
+    by_path = {"run": run_find_hits,
                "device_run": report["device_run"]["find_hits_launches"],
                "scan": report["scan"]["find_hits_launches"],
                "specificity": sum(spec[n]["launches"] for n in spec
@@ -3685,7 +3707,7 @@ def main():
     # are held to find_hits's list
     codes_launches = fh["hit_codes_launches"]
     kernels = {"kernels": [
-        dict(kernel_entry(dict(fh, launches=launches), "find_hits",
+        dict(kernel_entry(dict(fh, launches=run_find_hits), "find_hits",
                           "find_hits.cu",
                           "multiprime_tpu/ops/mismatch_scan.py:462"),
              launches_by_path=by_path, kernels=3,

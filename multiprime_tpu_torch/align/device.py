@@ -15,24 +15,21 @@ scores, same tie-breaking.
   the block's width alone (``gotoh_kernel_plan``): ``gotoh_dp_warp_kernel``
   (one warp a member, the row in registers, no block barrier) while lb + 1
   <= ``_GOTOH_WARP_MAX_COLS`` (1280), ``gotoh_dp_kernel`` (one CTA a
-  member, the row in shared or global memory) past it; both are counted
-  in ``GOTOH_DP_LAUNCHES``, the warp kernel also in
-  ``GOTOH_DP_WARP_LAUNCHES``.  For CPU tensors its plain version
-  ``gotoh_block_reference``, a Python loop over center rows of ~25 vector
-  ops on ``[M, lb+1]`` int32 lanes, the within-row affine-E dependency
-  folded into ``torch.cummax`` like the NumPy prefix max, and a trace loop
-  of the same kind.
+  member, the row in shared or global memory) past it.  For CPU tensors
+  its plain version ``gotoh_block_reference``, a Python loop over center
+  rows of ~25 vector ops on ``[M, lb+1]`` int32 lanes, the within-row
+  affine-E dependency folded into ``torch.cummax`` like the NumPy prefix
+  max, and a trace loop of the same kind.
 * ``refine_pass_device`` runs ``refine_block`` a member block:
   ``csrc/refine_dp.cu`` for CUDA tensors, one of its two kernels chosen by
   the block's width (``refine_kernel_plan``):
   ``refine_dp_warp_kernel`` (one warp a member, the column in registers,
   the profile staged 32 columns ahead, the trace walked in tiles) while
   lmax + 1 <= ``_REFINE_WARP_MAX_POS`` (1280), ``refine_dp_kernel`` (one
-  CTA a member) past it and for a block with a positive gap term; both are counted in ``REFINE_DP_LAUNCHES``, the
-  warp kernel also in ``REFINE_DP_WARP_LAUNCHES``.  For CPU tensors its
-  plain version ``refine_block_reference``, a loop over MSA columns on
-  ``[M, lmax+1]`` float32 lanes with the profile lookup as a
-  ``torch.gather`` (exact).
+  CTA a member) past it and for a block with a positive gap term.  For
+  CPU tensors its plain version ``refine_block_reference``, a loop over
+  MSA columns on ``[M, lmax+1]`` float32 lanes with the profile lookup as
+  a ``torch.gather`` (exact).
   The host pre-scales every multiply, so each device step (kernel and
   plain version alike) is one IEEE add, max or compare and the card
   rounds as NumPy does.
@@ -48,19 +45,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.mismatch_scan import _check_inputs, _launch
+from ..ops import _cuda
 from ..utils import link as linkmod
 from ..utils import trace
 from .centerstar import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
-
-# launches of each CUDA kernel in this process (never of its plain
-# version): a run reads them to show that its path went through the kernels.
-# GOTOH_DP_LAUNCHES counts both Gotoh kernels, GOTOH_DP_WARP_LAUNCHES the
-# warp kernel's share of them, and the same for the refine kernels
-GOTOH_DP_LAUNCHES = 0
-GOTOH_DP_WARP_LAUNCHES = 0
-REFINE_DP_LAUNCHES = 0
-REFINE_DP_WARP_LAUNCHES = 0
 
 _NEG = -1 << 28
 _NEGF = float(np.float32(-1e30))
@@ -146,7 +134,7 @@ def _ranges(*tensors):
 
 def _check_clocks(fn, clocks, m, dev):
     if clocks is not None:
-        _check_inputs(fn, dev, (("clocks", clocks, torch.int64, 2),))
+        _cuda.check_inputs(fn, dev, (("clocks", clocks, torch.int64, 2),))
         if tuple(clocks.shape) != (m, 3):
             raise ValueError("%s: clocks must be [%d, 3], got %s"
                              % (fn, m, tuple(clocks.shape)))
@@ -259,20 +247,18 @@ def gotoh_block(c, bmat, lbs, *, clocks=None):
     and the trace, one launch a block.  ``clocks`` (int64 [M, 3],
     optional) receives each member's clock64 at its start and before and
     after its trace.  CPU tensors take the plain version."""
-    global GOTOH_DP_LAUNCHES, GOTOH_DP_WARP_LAUNCHES
     dev = bmat.device
     if dev.type == "cpu":
         return gotoh_block_reference(np.asarray(c), bmat, lbs, dev)
-    _check_inputs("gotoh_block", dev, (("c", c, torch.int32, 1),
-                                       ("bmat", bmat, torch.int32, 2),
-                                       ("lbs", lbs, torch.int32, 1)))
+    _cuda.check_inputs("gotoh_block", dev, (("c", c, torch.int32, 1),
+                                            ("bmat", bmat, torch.int32, 2),
+                                            ("lbs", lbs, torch.int32, 1)))
     m, lb = bmat.shape
     if lbs.shape[0] != m:
         raise ValueError("gotoh_block: lbs must be [%d], got %s"
                          % (m, tuple(lbs.shape)))
     _check_clocks("gotoh_block", clocks, m, dev)
     name, size, pitch = gotoh_kernel_plan(lb)
-    from ..ops import _cuda
     lib = _cuda.load("gotoh_dp")
     if dev.type != "cuda":
         raise ValueError("gotoh_block: unsupported device %s" % dev)
@@ -293,11 +279,8 @@ def gotoh_block(c, bmat, lbs, *, clocks=None):
         state, region = _row_state(m, lb + 1, 10, dev)
         args += (_ptr_or_null(state), region)
     with torch.cuda.device(dev):
-        _launch(lib, name, *args, size, _ptr_or_null(clocks),
-                torch.cuda.current_stream(dev).cuda_stream)
-    GOTOH_DP_LAUNCHES += 1
-    if name == "gotoh_dp_warp":
-        GOTOH_DP_WARP_LAUNCHES += 1
+        _cuda.launch(lib, name, *args, size, _ptr_or_null(clocks),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return ops
 
 
@@ -483,12 +466,11 @@ def refine_block(res_codes, lens, s4, go_c, ge_c, occ2, *, clocks=None):
     launch a block.  ``clocks`` (int64 [M, 3],
     optional) receives each member's clock64 at its start and before and
     after its trace.  CPU tensors take the plain version."""
-    global REFINE_DP_LAUNCHES, REFINE_DP_WARP_LAUNCHES
     dev = res_codes.device
     if dev.type == "cpu":
         return refine_block_reference(res_codes, lens, s4, go_c, ge_c, occ2,
                                       dev)
-    _check_inputs("refine_block", dev, (
+    _cuda.check_inputs("refine_block", dev, (
         ("res_codes", res_codes, torch.int64, 2),
         ("lens", lens, torch.int64, 1), ("s4", s4, torch.float32, 3),
         ("go_c", go_c, torch.float32, 2), ("ge_c", ge_c, torch.float32, 2),
@@ -502,7 +484,6 @@ def refine_block(res_codes, lens, s4, go_c, ge_c, occ2, *, clocks=None):
             raise ValueError("refine_block: %s must be %s, got %s"
                              % (name, list(shape), tuple(t.shape)))
     _check_clocks("refine_block", clocks, m, dev)
-    from ..ops import _cuda
     lib = _cuda.load("refine_dp")
     if dev.type != "cuda":
         raise ValueError("refine_block: unsupported device %s" % dev)
@@ -528,11 +509,8 @@ def refine_block(res_codes, lens, s4, go_c, ge_c, occ2, *, clocks=None):
         state, region = _row_state(m, lmax + 1, 9, dev)
         args += (_ptr_or_null(state), region)
     with torch.cuda.device(dev):
-        _launch(lib, name, *args, size, _ptr_or_null(clocks),
-                torch.cuda.current_stream(dev).cuda_stream)
-    REFINE_DP_LAUNCHES += 1
-    if name == "refine_dp_warp":
-        REFINE_DP_WARP_LAUNCHES += 1
+        _cuda.launch(lib, name, *args, size, _ptr_or_null(clocks),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return cols
 
 

@@ -12,12 +12,12 @@ shorter length in float64 as native does, so the identities are equal
 to the bit.
 
 * ``banded_matches`` launches ``csrc/banded_identity.cu`` for CUDA tensors
-  (one warp a pair; ``IDENTITY_LAUNCHES`` counts its launches): the
-  register kernel for bands of up to ``_MAX_WIDTH`` cells, the wide
-  kernel (the band in chunks through a scratch row) for the rest.  CPU
-  tensors take the plain version ``banded_matches_reference``: a loop
-  over rows of ~25 vector ops on ``[pairs, width]`` lanes, the within-row
-  E state folded into ``torch.cummax``, in the kernel's key type.
+  (one warp a pair): the register kernel for bands of up to
+  ``_MAX_WIDTH`` cells, the wide kernel (the band in chunks through a
+  scratch row) for the rest.  CPU tensors take the plain version
+  ``banded_matches_reference``: a loop over rows of ~25 vector ops on
+  ``[pairs, width]`` lanes, the within-row E state folded into
+  ``torch.cummax``, in the kernel's key type.
 * ``identity_plan`` gives a launch's cells a lane and key width from the
   pairs' lengths; ``kernel_takes`` says whether a pair's keys fit at all.
 * ``resolve_clustering`` decides once a job where its clustering runs.
@@ -33,10 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.mismatch_scan import _check_inputs, _launch
-
-# launches of the CUDA kernels in this process (never of their plain version)
-IDENTITY_LAUNCHES = 0
+from ..ops import _cuda
 
 # the register kernel's cells a lane (its instantiations in
 # csrc/banded_identity.cu) and the widest band it takes: 32 lanes of the
@@ -181,7 +178,8 @@ def banded_matches(codes, meta, band):
     dev = codes.device
     if dev.type == "cpu":
         return banded_matches_reference(codes, meta, band)
-    _check_inputs("banded_matches", dev, (("codes", codes, torch.int8, 1),))
+    _cuda.check_inputs("banded_matches", dev,
+                       (("codes", codes, torch.int8, 1),))
     meta = np.ascontiguousarray(meta, np.int64)
     if meta.ndim != 2 or meta.shape[0] != 4:
         raise ValueError("banded_matches: meta must be [4, P], got %s"
@@ -189,7 +187,6 @@ def banded_matches(codes, meta, band):
     if (_span(meta[1], meta[3], band) >= 1 << _SHIFT64).any():
         raise ValueError("banded_matches: a pair's keys pass native's "
                          "64-bit packing (a sequence past about 524 kb)")
-    from ..ops import _cuda
     lib = _cuda.load("banded_identity")
     if dev.type != "cuda":
         raise ValueError("banded_matches: unsupported device %s" % dev)
@@ -216,20 +213,17 @@ def banded_matches(codes, meta, band):
 
 def _launch_narrow(lib, codes, meta, band, out):
     """One launch of the register kernel over ``meta``'s pairs."""
-    global IDENTITY_LAUNCHES
     k, bits, shift = identity_plan(meta[1], meta[3], band)
     meta_d = torch.from_numpy(meta).to(codes.device)
-    _launch(lib, "banded_identity", codes.data_ptr(), meta_d.data_ptr(),
-            meta.shape[1], band, shift, bits, k, out.data_ptr(),
-            torch.cuda.current_stream(codes.device).cuda_stream)
-    IDENTITY_LAUNCHES += 1
+    _cuda.launch(lib, "banded_identity", codes.data_ptr(), meta_d.data_ptr(),
+                 meta.shape[1], band, shift, bits, k, out.data_ptr(),
+                 torch.cuda.current_stream(codes.device).cuda_stream)
 
 
 def _launch_wide(lib, codes, meta, band, out):
     """The wide kernel over ``meta``'s pairs, in launches whose scratch
     rows (V and F of each pair's band, a stride of whole chunks of the
     launch's widest band) fit ``_WIDE_SCRATCH_BYTES``."""
-    global IDENTITY_LAUNCHES
     dev = codes.device
     _, bits, shift = identity_plan(meta[1], meta[3], band)
     dtype = torch.int32 if bits == 32 else torch.int64
@@ -242,10 +236,9 @@ def _launch_wide(lib, codes, meta, band, out):
         n = part.shape[1]
         meta_d = torch.from_numpy(part).to(dev)
         scratch = torch.empty((n, 2, stride), dtype=dtype, device=dev)
-        _launch(lib, "banded_identity_wide", codes.data_ptr(),
-                meta_d.data_ptr(), n, band, shift, bits, stride,
-                scratch.data_ptr(), out[lo:lo + n].data_ptr(), stream)
-        IDENTITY_LAUNCHES += 1
+        _cuda.launch(lib, "banded_identity_wide", codes.data_ptr(),
+                     meta_d.data_ptr(), n, band, shift, bits, stride,
+                     scratch.data_ptr(), out[lo:lo + n].data_ptr(), stream)
 
 
 def resolve_clustering(lengths, threads, band=64, k=10, threshold=0.7,

@@ -1,4 +1,4 @@
-"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+"""Build, bind and launch the hand-written CUDA kernels in ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled by ``nvcc`` into ``_build/lib<name>.so`` at first use (rebuilt when
@@ -6,6 +6,11 @@ the source or a shared ``csrc/*.cuh`` header is newer), then loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds.  A failed build
 raises with the compiler's stderr.  Nothing here runs at import time, so
 the CPU tests import the package without a CUDA toolkit.
+
+Every wrapper checks its tensors with ``check_inputs`` and launches with
+``launch``, the one place a launcher is called: it times the launch for
+the trace, raises on the launcher's error code and counts the launch by
+its prefix (``launches``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ BUILD_LOG = {}
 
 _libs = {}
 _lock = threading.Lock()
+# successful launches of each launcher in this process (never of a plain
+# version), by prefix: a run reads them to show its path went through
+# the kernels
+_LAUNCHED = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc():
@@ -95,28 +105,15 @@ _PTR = ctypes.c_void_p             # pointers and the stream: never 32-bit
 _I64, _INT = ctypes.c_int64, ctypes.c_int
 
 
-def _timed(prefix, launch):
-    """A launcher as bound: the kernel straight, or while the trace
-    records (utils/trace.py), between two CUDA events on the stream its
-    last argument names, read by the innermost open span."""
-    def call(*args):
-        if not trace.ON:
-            return launch(*args)
-        return trace.launch(prefix, launch, args)
-    return call
-
-
 def _bind(lib, launchers):
     """Set the argument types of each ``<prefix>_launch`` of a library
     (``launchers``: prefix -> argument types; each returns a CUDA error
     code, its last argument the stream) and of the
-    ``<prefix>_error_string`` beside it, and put the launcher under
-    ``_timed``."""
+    ``<prefix>_error_string`` beside it."""
     for prefix, launch_args in launchers.items():
-        launch = getattr(lib, prefix + "_launch")
-        launch.restype = ctypes.c_int
-        launch.argtypes = list(launch_args)
-        setattr(lib, prefix + "_launch", _timed(prefix, launch))
+        fn = getattr(lib, prefix + "_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(launch_args)
         err = getattr(lib, prefix + "_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
@@ -190,3 +187,41 @@ def load(name):
                 _bind(lib, _LAUNCHERS[name])
             _libs[name] = lib
         return lib
+
+
+def check_inputs(fn, dev, tensors):
+    """Raise unless each (name, tensor, dtype, ndim) is a contiguous tensor
+    of that dtype and rank on ``dev``: what a kernel's pointers assume."""
+    for name, t, dtype, ndim in tensors:
+        if t.device != dev or t.dtype != dtype or t.dim() != ndim \
+                or not t.is_contiguous():
+            raise ValueError(
+                "%s: %s must be a contiguous %dD %s tensor on %s, got %s %s "
+                "on %s" % (fn, name, ndim, dtype, dev, t.dtype,
+                           tuple(t.shape), t.device))
+
+
+def launch(lib, prefix, *args):
+    """Call a kernel's C launcher ``<prefix>_launch`` of a library from
+    ``load`` (``args`` end with the stream): straight, or while the trace
+    records (utils/trace.py), between two CUDA events on that stream, read
+    by the innermost open span.  Raise on an error code (a refused launch
+    never runs, and no synchronize reports it); count the launch once it
+    succeeded."""
+    fn = getattr(lib, prefix + "_launch")
+    rc = trace.launch(prefix, fn, args) if trace.ON else fn(*args)
+    if rc != 0:
+        raise RuntimeError("%s kernel launch failed: %s (%d)" % (
+            prefix, getattr(lib, prefix + "_error_string")(rc).decode(), rc))
+    with _count_lock:
+        _LAUNCHED[prefix] = _LAUNCHED.get(prefix, 0) + 1
+
+
+def launches():
+    """{launcher prefix: successful launches in this process so far}, with
+    every prefix of ``_LAUNCHERS`` (zeros included): a copy, so a caller
+    takes it before and after and subtracts."""
+    counts = {prefix: 0 for lib in _LAUNCHERS.values() for prefix in lib}
+    with _count_lock:
+        counts.update(_LAUNCHED)
+    return counts

@@ -19,8 +19,7 @@ kernels of ``csrc/design_stage_a.cu`` for CUDA tensors:
 * ``stage_a_rows``: each row's non-gap prefix counts ``before`` [N, L+1]
   and its left-packed residues, once an MSA;
 * ``window_stats_from_masks``: the patched windows, freq, nn and the
-  cover/gap counts of a block of windows, one launch a block (counted in
-  ``STAGE_A_LAUNCHES``);
+  cover/gap counts of a block of windows, one launch a block;
 * ``viterbi_batch``: the consensus of each window, one launch a block (a
   mesh sums its shards' counts first).
 
@@ -38,15 +37,7 @@ import torch
 
 from ..utils import link as linkmod
 from ..utils import trace
-from .mismatch_scan import _check_inputs, _launch
-
-# launches of each Stage-A CUDA kernel in this process (never of its plain
-# version): a run reads them to show that its path went through the
-# kernels.  STAGE_A_LAUNCHES counts the windows kernel, one a block of
-# windows (on each device of a mesh)
-STAGE_A_LAUNCHES = 0
-STAGE_A_ROWS_LAUNCHES = 0
-STAGE_A_VITERBI_LAUNCHES = 0
+from . import _cuda
 
 # popcount / member-count tables for 4-bit IUPAC masks.
 _POP = np.array([bin(i).count("1") for i in range(16)], dtype=np.int64)
@@ -209,7 +200,6 @@ def _ranges(t):
 
 def _load(fn, dev):
     """The kernels' library, for a launch on ``dev`` (a CUDA device)."""
-    from . import _cuda
     lib = _cuda.load(_LIB)
     if dev.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (fn, dev))
@@ -226,11 +216,11 @@ def stage_a_rows(masks):
     ``stage_a_rows_reference`` gives them.  CUDA tensors launch
     ``stage_a_rows_kernel`` (or raise), after one sync that checks the
     masks lie in 0..15; CPU tensors take the plain version."""
-    global STAGE_A_ROWS_LAUNCHES
     dev = masks.device
     if dev.type == "cpu":
         return stage_a_rows_reference(masks)
-    _check_inputs("stage_a_rows", dev, (("masks", masks, torch.int32, 2),))
+    _cuda.check_inputs("stage_a_rows", dev,
+                       (("masks", masks, torch.int32, 2),))
     lib = _load("stage_a_rows", dev)
     n, length = masks.shape
     if masks.numel():
@@ -242,7 +232,6 @@ def stage_a_rows(masks):
     packed = torch.empty((n, length), dtype=torch.uint8, device=dev)
     if n:
         launch_rows(lib, masks, before, packed)
-        STAGE_A_ROWS_LAUNCHES += 1
     return before, packed
 
 
@@ -268,12 +257,12 @@ def _positions(fn, positions, length, plen, dev):
 
 def launch_rows(lib, masks, before, packed):
     """One launch of the rows kernel on checked tensors (the wrapper's, and
-    the smoke check's timing loop: only the wrapper counts it)."""
+    the smoke check's timing loop)."""
     dev = masks.device
     with torch.cuda.device(dev):
-        _launch(lib, "stage_a_rows", masks.data_ptr(), before.data_ptr(),
-                packed.data_ptr(), masks.shape[0], masks.shape[1],
-                _stream(dev))
+        _cuda.launch(lib, "stage_a_rows", masks.data_ptr(),
+                     before.data_ptr(), packed.data_ptr(), masks.shape[0],
+                     masks.shape[1], _stream(dev))
 
 
 def launch_windows(lib, masks, rows, pos, out, win, plen, variation):
@@ -282,12 +271,13 @@ def launch_windows(lib, masks, rows, pos, out, win, plen, variation):
     dev = masks.device
     n, length = masks.shape
     with torch.cuda.device(dev):
-        _launch(lib, "stage_a_windows", masks.data_ptr(), rows[0].data_ptr(),
-                rows[1].data_ptr(), pos.data_ptr(),
-                None if win is None else win.data_ptr(),
-                out["freq"].data_ptr(), out["nn"].data_ptr(),
-                out["cover_number"].data_ptr(), out["gap_number"].data_ptr(),
-                n, length, pos.shape[0], plen, int(variation), _stream(dev))
+        _cuda.launch(lib, "stage_a_windows", masks.data_ptr(),
+                     rows[0].data_ptr(), rows[1].data_ptr(), pos.data_ptr(),
+                     None if win is None else win.data_ptr(),
+                     out["freq"].data_ptr(), out["nn"].data_ptr(),
+                     out["cover_number"].data_ptr(),
+                     out["gap_number"].data_ptr(), n, length, pos.shape[0],
+                     plen, int(variation), _stream(dev))
 
 
 def launch_viterbi(lib, freq, nn, path):
@@ -295,8 +285,9 @@ def launch_viterbi(lib, freq, nn, path):
     ``launch_rows``)."""
     dev = freq.device
     with torch.cuda.device(dev):
-        _launch(lib, "stage_a_viterbi", freq.data_ptr(), nn.data_ptr(),
-                path.data_ptr(), path.shape[0], path.shape[1], _stream(dev))
+        _cuda.launch(lib, "stage_a_viterbi", freq.data_ptr(),
+                     nn.data_ptr(), path.data_ptr(), path.shape[0],
+                     path.shape[1], _stream(dev))
 
 
 def window_stats_from_masks(masks, positions, *, plen=18, variation=1,
@@ -310,7 +301,6 @@ def window_stats_from_masks(masks, positions, *, plen=18, variation=1,
     CUDA tensors launch ``stage_a_windows_kernel`` once (or raise), on
     ``rows`` = ``stage_a_rows(masks)`` (made here when not given: pass
     them to run it once an MSA); CPU tensors take the plain versions."""
-    global STAGE_A_LAUNCHES
     dev = masks.device
     if dev.type == "cpu":
         win = patch_windows_reference(masks, positions, plen, device=dev)
@@ -319,7 +309,7 @@ def window_stats_from_masks(masks, positions, *, plen=18, variation=1,
             stats["win"] = win.to(torch.int8)
         return stats
     fn = "window_stats_from_masks"
-    _check_inputs(fn, dev, (("masks", masks, torch.int32, 2),))
+    _cuda.check_inputs(fn, dev, (("masks", masks, torch.int32, 2),))
     if plen < 1:
         raise ValueError("%s: plen must be at least 1, got %d" % (fn, plen))
     lib = _load(fn, dev)
@@ -328,8 +318,8 @@ def window_stats_from_masks(masks, positions, *, plen=18, variation=1,
     if rows is None:
         rows = stage_a_rows(masks)
     before, packed = rows
-    _check_inputs(fn, dev, (("before", before, torch.int32, 2),
-                            ("packed", packed, torch.uint8, 2)))
+    _cuda.check_inputs(fn, dev, (("before", before, torch.int32, 2),
+                                 ("packed", packed, torch.uint8, 2)))
     if tuple(before.shape) != (n, length + 1) \
             or tuple(packed.shape) != (n, length):
         raise ValueError("%s: rows must be [%d, %d] and [%d, %d], got %s and "
@@ -345,7 +335,6 @@ def window_stats_from_masks(masks, positions, *, plen=18, variation=1,
         if with_win else None
     if w:
         launch_windows(lib, masks, rows, pos, out, win, plen, variation)
-        STAGE_A_LAUNCHES += 1
     if with_win:
         out["win"] = win
     return out
@@ -357,7 +346,6 @@ def viterbi_batch(freq, nn, *, device="cuda"):
     the first maximum, like np.argmax.  CUDA launches
     ``stage_a_viterbi_kernel`` (or raises), the CPU takes the plain
     version."""
-    global STAGE_A_VITERBI_LAUNCHES
     dev = linkmod.resolve_device(device)
     freq = torch.as_tensor(freq, device=dev).to(torch.int64)
     nn = torch.as_tensor(nn, device=dev).to(torch.int64)
@@ -365,8 +353,9 @@ def viterbi_batch(freq, nn, *, device="cuda"):
         return viterbi_batch_reference(freq, nn, device=dev)
     freq, nn = freq.contiguous(), nn.contiguous()
     dev = freq.device                 # "cuda" resolved to its index
-    _check_inputs("viterbi_batch", dev, (("freq", freq, torch.int64, 3),
-                                         ("nn", nn, torch.int64, 4)))
+    _cuda.check_inputs("viterbi_batch", dev,
+                       (("freq", freq, torch.int64, 3),
+                        ("nn", nn, torch.int64, 4)))
     w, plen = freq.shape[:2]
     if plen < 1 or freq.shape[2] != 4 \
             or tuple(nn.shape) != (w, plen - 1, 4, 4):
@@ -377,7 +366,6 @@ def viterbi_batch(freq, nn, *, device="cuda"):
     path = torch.empty((w, plen), dtype=torch.int32, device=dev)
     if w:
         launch_viterbi(lib, freq, nn, path)
-        STAGE_A_VITERBI_LAUNCHES += 1
     return path
 
 

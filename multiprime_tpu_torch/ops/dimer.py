@@ -36,11 +36,8 @@ import torch
 from ..thermo import exact as thermo
 from ..utils import iupac
 from ..utils import link as linkmod
+from . import _cuda
 from . import mismatch_scan as ms
-
-# launches of the dimer_fired kernel in this process (never of its plain
-# version)
-DIMER_FIRED_LAUNCHES = 0
 
 
 def expanded_ends(primer, min_len=5, max_len=None, include_full=True):
@@ -204,12 +201,11 @@ def _fused_kernel(masks, lens, planes, lp, z, ln_vec, shift_vec, trig):
     kernel ``csrc/dimer_fired.cu`` (or raise); CPU tensors take the plain
     version.
     """
-    global DIMER_FIRED_LAUNCHES
     dev = masks.device
     if dev.type == "cpu":
         return _fused_kernel_reference(masks, lens, planes, lp, z, ln_vec,
                                        shift_vec, trig)
-    ms._check_inputs("dimer_fired", dev, (
+    _cuda.check_inputs("dimer_fired", dev, (
         ("masks", masks, torch.uint8, 2), ("lens", lens, torch.int64, 1),
         ("planes", planes, torch.int64, 2),
         ("ln_vec", ln_vec, torch.int64, 1),
@@ -230,7 +226,6 @@ def _fused_kernel(masks, lens, planes, lp, z, ln_vec, shift_vec, trig):
         raise ValueError("dimer_fired: lp must be in 1..%d and trig have a "
                          "column, got lp %d, W %d"
                          % (ms.MAX_COUNT_PLEN, lp, width))
-    from . import _cuda
     lib = _cuda.load("dimer_fired")
     if dev.type != "cuda":
         raise ValueError("dimer_fired: unsupported device %s" % dev)
@@ -238,12 +233,12 @@ def _fused_kernel(masks, lens, planes, lp, z, ln_vec, shift_vec, trig):
     if fired.numel() == 0:
         return fired
     with torch.cuda.device(dev):
-        ms._launch(lib, "dimer_fired",
-                   masks.data_ptr(), lens.data_ptr(), planes.data_ptr(),
-                   ln_vec.data_ptr(), shift_vec.data_ptr(), trig.data_ptr(),
-                   fired.data_ptr(), n_t, length, n_e, width, int(lp),
-                   int(z), torch.cuda.current_stream(dev).cuda_stream)
-    DIMER_FIRED_LAUNCHES += 1
+        _cuda.launch(lib, "dimer_fired",
+                     masks.data_ptr(), lens.data_ptr(), planes.data_ptr(),
+                     ln_vec.data_ptr(), shift_vec.data_ptr(),
+                     trig.data_ptr(), fired.data_ptr(), n_t, length, n_e,
+                     width, int(lp), int(z),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return fired
 
 

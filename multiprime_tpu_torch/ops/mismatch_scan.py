@@ -42,13 +42,7 @@ import torch.nn.functional as F
 
 from ..utils import iupac
 from ..utils import link as linkmod
-
-# launches of each CUDA kernel in this process (never of its plain
-# version): a run reads them to show that its path went through the kernels
-HIT_CODES_LAUNCHES = 0
-FIND_HITS_LAUNCHES = 0
-MATCH_COUNTS_LAUNCHES = 0
-HIT_WINDOW_BITMAP_LAUNCHES = 0
+from . import _cuda
 
 # the combined-weight trick of hit_codes_conv: score = counts + W * suffix
 _W = 64
@@ -169,27 +163,6 @@ def _unpack_planes(planes, plen):
     return ((planes[:, :, None] >> bits) & 1).to(torch.float32)
 
 
-def _check_inputs(fn, dev, tensors):
-    """Raise unless each (name, tensor, dtype, ndim) is a contiguous tensor
-    of that dtype and rank on ``dev``: what a kernel's pointers assume."""
-    for name, t, dtype, ndim in tensors:
-        if t.device != dev or t.dtype != dtype or t.dim() != ndim \
-                or not t.is_contiguous():
-            raise ValueError(
-                "%s: %s must be a contiguous %dD %s tensor on %s, got %s %s "
-                "on %s" % (fn, name, ndim, dtype, dev, t.dtype,
-                           tuple(t.shape), t.device))
-
-
-def _launch(lib, fn, *args):
-    """Call a kernel's C launcher on the current stream; raise on an error
-    code (a refused launch never runs, and no synchronize reports it)."""
-    rc = getattr(lib, fn + "_launch")(*args)
-    if rc != 0:
-        raise RuntimeError("%s kernel launch failed: %s (%d)" % (
-            fn, getattr(lib, fn + "_error_string")(rc).decode(), rc))
-
-
 def hit_codes_reference(target_masks, planes, suffix_planes, *, plen, mm,
                         term):
     """Plain PyTorch version of the hit-code kernel: one float32 conv1d over
@@ -225,7 +198,6 @@ def hit_codes(target_masks, planes, suffix_planes, *, plen, mm, term):
     test for the rare candidates only, the codes zeroed by bulk copies and
     the hits' codes written over them.  CPU tensors take the plain
     version."""
-    global HIT_CODES_LAUNCHES
     dev = target_masks.device
     if dev.type == "cpu":
         return hit_codes_reference(target_masks, planes, suffix_planes,
@@ -236,14 +208,12 @@ def hit_codes(target_masks, planes, suffix_planes, *, plen, mm, term):
                         device=dev)
     if codes.numel() == 0:
         return codes
-    from . import _cuda
     with torch.cuda.device(dev):
-        _launch(_cuda.load("hit_codes"), "hit_codes",
-                target_masks.data_ptr(), planes.data_ptr(),
-                suffix_planes.data_ptr(), codes.data_ptr(), n, length, p,
-                int(plen), int(mm), int(term),
-                torch.cuda.current_stream(dev).cuda_stream)
-    HIT_CODES_LAUNCHES += 1
+        _cuda.launch(_cuda.load("hit_codes"), "hit_codes",
+                     target_masks.data_ptr(), planes.data_ptr(),
+                     suffix_planes.data_ptr(), codes.data_ptr(), n, length,
+                     p, int(plen), int(mm), int(term),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return codes
 
 
@@ -259,9 +229,10 @@ def _check_scan_inputs(fn, target_masks, planes, suffix_planes, plen):
 def _scan_shapes(fn, target_masks, planes, suffix_planes, plen):
     """``_check_scan_inputs`` but for the device type -> (N, L, P)."""
     dev = target_masks.device
-    _check_inputs(fn, dev, (("target_masks", target_masks, torch.uint8, 2),
-                            ("planes", planes, torch.int64, 2),
-                            ("suffix_planes", suffix_planes, torch.int64, 2)))
+    _cuda.check_inputs(fn, dev, (
+        ("target_masks", target_masks, torch.uint8, 2),
+        ("planes", planes, torch.int64, 2),
+        ("suffix_planes", suffix_planes, torch.int64, 2)))
     p = planes.shape[0]
     if planes.shape[1] != 4 or tuple(suffix_planes.shape) != (p, 4):
         raise ValueError("%s: planes and suffix_planes must be [P, 4], got "
@@ -304,15 +275,14 @@ def match_counts_kernel(target_masks, planes, *, plen):
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors take the
     plain version."""
-    global MATCH_COUNTS_LAUNCHES
     dev = target_masks.device
     if dev.type == "cpu":
         return match_counts_reference(target_masks, planes, plen=plen)
     if dev.type != "cuda":
         raise ValueError("match_counts: unsupported device %s" % dev)
-    _check_inputs("match_counts", dev,
-                  (("target_masks", target_masks, torch.uint8, 2),
-                   ("planes", planes, torch.int64, 2)))
+    _cuda.check_inputs("match_counts", dev,
+                       (("target_masks", target_masks, torch.uint8, 2),
+                        ("planes", planes, torch.int64, 2)))
     if planes.shape[1] != 4:
         raise ValueError("match_counts: planes must be [P, 4], got %s"
                          % (tuple(planes.shape),))
@@ -325,13 +295,11 @@ def match_counts_kernel(target_masks, planes, *, plen):
                          dtype=torch.float32, device=dev)
     if counts.numel() == 0:
         return counts
-    from . import _cuda
     with torch.cuda.device(dev):
-        _launch(_cuda.load("match_counts"), "match_counts",
-                target_masks.data_ptr(), planes.data_ptr(),
-                counts.data_ptr(), n, length, p, int(plen),
-                torch.cuda.current_stream(dev).cuda_stream)
-    MATCH_COUNTS_LAUNCHES += 1
+        _cuda.launch(_cuda.load("match_counts"), "match_counts",
+                     target_masks.data_ptr(), planes.data_ptr(),
+                     counts.data_ptr(), n, length, p, int(plen),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return counts
 
 
@@ -381,7 +349,6 @@ def hit_window_bitmap_kernel(target_masks, planes, suffix_planes, *, plen,
     raise): the match counts as an int8 tensor-core product (wgmma), their
     row maximum against plen - mm, the suffix test for candidates only.
     CPU tensors take the plain version."""
-    global HIT_WINDOW_BITMAP_LAUNCHES
     if target_masks.device.type == "cpu":
         return hit_window_bitmap_reference(target_masks, planes,
                                            suffix_planes, plen=plen, mm=mm,
@@ -393,14 +360,12 @@ def hit_window_bitmap_kernel(target_masks, planes, suffix_planes, *, plen,
                          device=dev)
     if bitmap.numel() == 0:
         return bitmap
-    from . import _cuda
     with torch.cuda.device(dev):
-        _launch(_cuda.load("hit_window_bitmap"), "hit_window_bitmap",
-                target_masks.data_ptr(), planes.data_ptr(),
-                suffix_planes.data_ptr(), bitmap.data_ptr(), n, length, p,
-                int(plen), int(mm), int(term),
-                torch.cuda.current_stream(dev).cuda_stream)
-    HIT_WINDOW_BITMAP_LAUNCHES += 1
+        _cuda.launch(_cuda.load("hit_window_bitmap"), "hit_window_bitmap",
+                     target_masks.data_ptr(), planes.data_ptr(),
+                     suffix_planes.data_ptr(), bitmap.data_ptr(), n, length,
+                     p, int(plen), int(mm), int(term),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return bitmap
 
 
@@ -573,7 +538,6 @@ def find_hits(target_masks, lengths, planes, suffix_planes, *, plen, mm=1,
     offsets, then each block's hits below max_hits written in order and
     the padding, with no [N, O, P] codes tensor.  CPU tensors take the
     plain version."""
-    global FIND_HITS_LAUNCHES
     dev = target_masks.device
     if dev.type == "cpu":
         return find_hits_reference(target_masks, lengths, planes,
@@ -591,7 +555,6 @@ def find_hits(target_masks, lengths, planes, suffix_planes, *, plen, mm=1,
     if max_hits < 0:
         raise ValueError("find_hits: max_hits must be >= 0, got %d"
                          % max_hits)
-    from . import _cuda
     lib = _cuda.load("find_hits")
     if dev.type != "cuda":
         raise ValueError("find_hits: unsupported device %s" % dev)
@@ -604,15 +567,14 @@ def find_hits(target_masks, lengths, planes, suffix_planes, *, plen, mm=1,
     counts = torch.empty(blocks, dtype=torch.int32, device=dev)
     offsets = torch.empty(blocks, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        _launch(lib, "find_hits", target_masks.data_ptr(),
-                lengths.data_ptr(), int(lengths.dtype == torch.int64),
-                planes.data_ptr(), suffix_planes.data_ptr(),
-                counts.data_ptr(), offsets.data_ptr(), blocks,
-                n_hits.data_ptr(),
-                hit_idx.data_ptr(), mism.data_ptr(), n, length, p, int(plen),
-                int(mm), int(term), int(max_hits),
-                torch.cuda.current_stream(dev).cuda_stream)
-    FIND_HITS_LAUNCHES += 1
+        _cuda.launch(lib, "find_hits", target_masks.data_ptr(),
+                     lengths.data_ptr(), int(lengths.dtype == torch.int64),
+                     planes.data_ptr(), suffix_planes.data_ptr(),
+                     counts.data_ptr(), offsets.data_ptr(), blocks,
+                     n_hits.data_ptr(), hit_idx.data_ptr(), mism.data_ptr(),
+                     n, length, p, int(plen), int(mm), int(term),
+                     int(max_hits),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return hit_idx, n_hits, mism
 
 

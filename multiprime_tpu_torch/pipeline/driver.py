@@ -24,6 +24,7 @@ Differences from the reference runtime:
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import pickle
@@ -33,6 +34,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..ops import _cuda
 from ..utils import trace
 
 
@@ -268,18 +270,6 @@ class PipelineConfig:
 _WORKER_READY = False
 
 
-def _kernel_launches():
-    """{kernel: launches} of the device DP and Stage-A kernels in this
-    process so far (Stage A: its windows kernel, one a block)."""
-    from ..align import device as adev
-    from ..ops import design_scan
-    return {"gotoh_dp": adev.GOTOH_DP_LAUNCHES,
-            "gotoh_dp_warp": adev.GOTOH_DP_WARP_LAUNCHES,
-            "refine_dp": adev.REFINE_DP_LAUNCHES,
-            "refine_dp_warp": adev.REFINE_DP_WARP_LAUNCHES,
-            "stage_a_kernel": design_scan.STAGE_A_LAUNCHES}
-
-
 class Pipeline:
     def __init__(self, cfg: PipelineConfig):
         from ..utils import link as linkmod
@@ -291,14 +281,9 @@ class Pipeline:
         # clusters served by each Stage-A and align backend: {"stage_a":
         # {"device": n, ...}, "align": {"native": n, "none": n, ...}}
         self.served = {}
-        # launches of the device DP and Stage-A kernels in the cluster
-        # stages, summed over the workers
-        self.kernel_launches = dict.fromkeys(_kernel_launches(), 0)
         # how the fan-out's pool started: its method, and for a forkserver
         # whether the server was up before this run asked for it
         self.pool = {"pool_start": None}
-        # launches of the clustering's banded-identity kernel in this run
-        self.identity_launches = 0
         self.server_warm = None
         if not cfg.input_fa and cfg.input_dir and cfg.virus_name:
             cfg.input_fa = os.path.join(cfg.input_dir,
@@ -378,12 +363,30 @@ class Pipeline:
 
     # -- stages ----------------------------------------------------------------
     def run(self):
-        if int(self.cfg.devices or 1) > 1:
-            from ..parallel import mesh as pmesh
-            mesh = pmesh.make_mesh(int(self.cfg.devices), device=self.device)
-            with pmesh.use_mesh(mesh):
-                return self._run_body()
-        return self._run_body()
+        # kernel launches in this process when the run starts, and those of
+        # the fan-out's pool workers in this run, by launcher prefix
+        self.launched = _cuda.launches()
+        self.worker_launches = collections.Counter()
+        self.launches = None
+        try:
+            if int(self.cfg.devices or 1) > 1:
+                from ..parallel import mesh as pmesh
+                mesh = pmesh.make_mesh(int(self.cfg.devices),
+                                       device=self.device)
+                with pmesh.use_mesh(mesh):
+                    return self._run_body()
+            return self._run_body()
+        finally:
+            self._end_launches()
+
+    def _end_launches(self):
+        """Fix the run's kernel launches by launcher prefix, this
+        process's and its pool workers' together, once, when the run ends:
+        a launch after it is not the run's."""
+        if self.launches is None:
+            self.launches = {
+                k: n - self.launched[k] + self.worker_launches[k]
+                for k, n in _cuda.launches().items()}
 
     def _run_body(self):
         cfg = self.cfg
@@ -460,6 +463,7 @@ class Pipeline:
                      "scan"):
             if name in cfg.timings:
                 self.log.append((name, "ran", round(cfg.timings[name], 2)))
+        self._end_launches()
         with open(self._p("pipeline_metrics.json"), "w") as f:
             json.dump({"stages": [list(row) for row in self.log],
                        "timings_s": self.cfg.timings,
@@ -470,11 +474,10 @@ class Pipeline:
 
     def _backends(self):
         """Which engines actually served this run: the torch device, the
-        clusters each Stage-A and align backend served, the scan backend,
-        its device batches and the launch counts of the scan and DP
-        kernels."""
+        clusters each Stage-A and align backend served, the scan backend
+        and the run's kernel launches by launcher prefix, this process's
+        and its pool workers' together, as fixed when the run ended."""
         from .. import native
-        from ..ops import mismatch_scan as ms
         from ..utils import link as linkmod
         from ..validate import scan as vscan
         cfg = self.cfg
@@ -490,11 +493,7 @@ class Pipeline:
                 "refine_served": self.served.get("refine", {})}
         if vscan.LAST_BACKEND:
             info["scan_backend"] = vscan.LAST_BACKEND
-        info["find_hits_launches"] = ms.FIND_HITS_LAUNCHES
-        info["identity_launches"] = self.identity_launches
-        info["scan_device_batches"] = vscan.DEVICE_BATCHES
-        for key, n in self.kernel_launches.items():
-            info[key + "_launches"] = n
+        info["launches"] = dict(self.launches)
         info.update(self.pool)
         return info
 
@@ -550,7 +549,6 @@ class Pipeline:
             and identity.resolve_clustering(
                 [len(s) for s in seqs], cfg.nproc,
                 threshold=cfg.identity) == "device")
-        launched = identity.IDENTITY_LAUNCHES
         if on_device:
             order, clusters = greedy.greedy_cluster_windows(
                 ids, seqs, threshold=cfg.identity, threads=cfg.nproc,
@@ -560,7 +558,6 @@ class Pipeline:
         else:
             order, clusters = greedy.greedy_cluster(
                 ids, seqs, threshold=cfg.identity, threads=cfg.nproc)
-        self.identity_launches = identity.IDENTITY_LAUNCHES - launched
         greedy.write_representatives(clusters, ids, seqs, out)
         greedy.write_clstr(clusters, ids, seqs, out + ".clstr")
 
@@ -764,8 +761,7 @@ class Pipeline:
             for key, served in rep["served"].items():
                 count = self.served.setdefault(key, {})
                 count[served] = count.get(served, 0) + 1
-            for key, n in rep["kernel_launches"].items():
-                self.kernel_launches[key] += n
+            self.worker_launches.update(rep.get("launches", {}))
             self.log.extend(rep["log"])
 
     def _fan_out(self, names, workers):
@@ -839,17 +835,16 @@ class Pipeline:
                 torch.cuda.synchronize(self.device)
             _WORKER_READY = True
             trace.worker_started()
+        launched = _cuda.launches()
         rep = self._one_cluster(name)
+        rep["launches"] = {k: n - launched[k]
+                           for k, n in _cuda.launches().items()}
         rep["spans"] = trace.take()
         return rep
 
     def _one_cluster(self, name, inner_nproc=1):
         with trace.span("cluster"):
-            rep = self._cluster_stages(name, inner_nproc)
-            for key, n in rep["kernel_launches"].items():
-                if n:
-                    trace.count("launches." + key, n)
-        return rep
+            return self._cluster_stages(name, inner_nproc)
 
     def _cluster_stages(self, name, inner_nproc):
         from ..align import centerstar
@@ -857,7 +852,6 @@ class Pipeline:
         cfg = self.cfg
         rep = {"align_s": 0.0, "design_s": 0.0, "pair_s": 0.0, "log": [],
                "served": {}}
-        launched = _kernel_launches()
         tfa = self._p("Clusters_fa", name + ".tfa")
         msa_path = self._p("Clusters_msa", name + ".tmsa")
         if not os.path.exists(msa_path):
@@ -873,8 +867,6 @@ class Pipeline:
             rep["align_s"] += time.perf_counter() - t0
         if cfg.design_backend == "wrc":
             self._wrc_cluster(name, msa_path, tfa)
-            rep["kernel_launches"] = {k: n - launched[k]
-                                      for k, n in _kernel_launches().items()}
             return rep
         out = self._p("Clusters_primer", name + ".top.primer.out")
         cand = self._p("Clusters_cprimer",
@@ -936,8 +928,6 @@ class Pipeline:
             # clusters, and letting the caches grow across a 4096-cluster
             # fan-out costs GBs of RSS and a growing gen-2 GC walk
             mcdpd.clear_memo_caches()
-        rep["kernel_launches"] = {k: n - launched[k]
-                                  for k, n in _kernel_launches().items()}
         return rep
 
     def _align(self, ids, seqs, rep):

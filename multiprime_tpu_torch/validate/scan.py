@@ -45,9 +45,6 @@ from ..ops import mismatch_scan as ms
 # Which backend the most recent scan_hits call resolved to
 # ("host" / "device"); surfaced in pipeline metrics.
 LAST_BACKEND = None
-# batches (on a mesh, batch shards) the device scans of this process gave
-# find_hits, retries included: each is one launch of its kernels
-DEVICE_BATCHES = 0
 
 
 @dataclass
@@ -334,14 +331,12 @@ def _scan_hits(target_seqs, patterns, params: ScanParams, device):
         planes, suffix_planes = ms.pack_patterns(p1h, s1h, device=dev)
     # per-batch hit cap, grown and rescanned when a batch overflows it
     max_hits = 1 << 17
-    global DEVICE_BATCHES
     with trace.span("scan.find_hits"):
         while True:
             packs = ms.find_hits_batched(
                 t_all, l_all, planes, suffix_planes, plen=plen, mm=params.mm,
                 term=max(params.term, 0), max_hits=max_hits,
                 want_mism=params.want_mism).cpu().numpy()
-            DEVICE_BATCHES += n_batches
             trace.count("batches", n_batches)
             trace.count("d2h_bytes", packs.nbytes)
             worst = int(packs[:, 0].max()) if len(packs) else 0
@@ -372,7 +367,6 @@ def _scan_hits_sharded(mesh, target_seqs, p1h, s1h, n_real, pad_len, plen,
     with their global row offsets.  The same hits as the single-device
     paths, in the same order."""
     from ..parallel import mesh as pmesh
-    global DEVICE_BATCHES
     n_shards = mesh.devices.size
     n_out = pad_len - plen + 1
     bs = ms.safe_batch_size(params.device_batch_seqs, n_out, p1h.shape[0])
@@ -392,7 +386,6 @@ def _scan_hits_sharded(mesh, target_seqs, p1h, s1h, n_real, pad_len, plen,
                 mesh, t1h, lens, p1h, s1h, mm=params.mm,
                 term=max(params.term, 0), max_hits_per_shard=max_hits,
                 want_mism=params.want_mism)
-            DEVICE_BATCHES += n_shards
             worst = int(max(blk[0] for blk in blocks))
             if worst <= max_hits:
                 break

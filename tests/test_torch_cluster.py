@@ -10,6 +10,7 @@ import pytest
 from multiprime_tpu.cluster import greedy as jgreedy
 from multiprime_tpu_torch import native as tnative
 from multiprime_tpu_torch.cluster import greedy as tgreedy
+from multiprime_tpu_torch.ops import _cuda
 
 
 def _genomes(seed=41, families=2, members=10, singletons=4):
@@ -292,6 +293,7 @@ def test_cluster_stage_places_the_job_once(tmp_path, monkeypatch):
     fa.write_text("".join(">%s\n%s\n" % p for p in zip(ids, seqs)))
     pipe = driver.Pipeline(driver.PipelineConfig(
         results_dir=str(tmp_path / "res"), device="cpu"))
+    launched = _cuda.launches()
     got = {}
     for side in (None, "device"):
         if side:
@@ -307,7 +309,7 @@ def test_cluster_stage_places_the_job_once(tmp_path, monkeypatch):
     assert "identity.windows" not in got[None][1]
     assert got["device"][1]["identity.windows"] > 0
     assert "identity.host_pairs" not in got["device"][1]
-    assert pipe.identity_launches == 0
+    assert _cuda.launches() == launched
     fa.write_text(">long\n%s\n" % ("ACGT" * 131072 + "A" * 10))
     with pytest.raises(ValueError, match="MPTPU_FORCE_BACKEND=host"):
         pipe._cluster(str(fa), str(tmp_path / "long.fa"))

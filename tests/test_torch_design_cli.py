@@ -1,6 +1,7 @@
 """The port's `design` and `pair` CLIs and the device Stage A / device
 align `run` against the JAX package, on the CPU: byte-identical files."""
 
+import json
 import os
 
 import pytest
@@ -103,11 +104,38 @@ def test_run_pipeline_device_stages_equal_jax_host(tmp_path, nproc):
     assert n_clusters >= 2
     assert backends["stage_a_served"] == {"device": n_clusters}
     assert backends["align_served"] == {"device": n_clusters}
-    # the plain versions served on the CPU: no DP kernel launched
-    assert backends["gotoh_dp_launches"] == backends["refine_dp_launches"] == 0
-    assert backends["gotoh_dp_warp_launches"] == 0
-    assert backends["refine_dp_warp_launches"] == 0
-    assert backends["stage_a_kernel_launches"] == 0
+    # the plain versions served on the CPU: no kernel launched
+    launches = backends["launches"]
+    assert launches["gotoh_dp"] == launches["refine_dp"] == 0
+    assert launches["gotoh_dp_warp"] == launches["refine_dp_warp"] == 0
+    assert launches["stage_a_windows"] == 0
+    assert set(launches.values()) == {0}
+
+
+def test_run_reports_its_own_launches(tmp_path, monkeypatch):
+    """``backends["launches"]`` counts the run's own launches, keyed by
+    every launcher prefix: a CPU run (plain versions only, a pool of two
+    workers) started after launches counted earlier in the process reports
+    zero for each, in its metrics file too, and a launch after the run
+    ends is not the run's."""
+    from multiprime_tpu_torch.ops import _cuda
+    monkeypatch.setattr(_cuda, "_LAUNCHED", {
+        "find_hits": 7, "gotoh_dp": 3, "stage_a_windows": 2,
+        "banded_identity": 5})
+    fa = tmp_path / "three.fa"
+    _three_families(fa)
+    res = tmp_path / "res"
+    pipe, _ = tdriver.run_pipeline(
+        None, input_fa=str(fa), results_dir=str(res), device="cpu",
+        stage_a="device", align_backend="centerstar-device", nproc=2,
+        **PIPE_KW)
+    want = {prefix: 0 for lib in _cuda._LAUNCHERS.values() for prefix in lib}
+    assert pipe._backends()["launches"] == want
+    with open(res / "pipeline_metrics.json") as f:
+        assert json.load(f)["backends"]["launches"] == want
+    assert _cuda.launches()["find_hits"] == 7
+    _cuda._LAUNCHED["find_hits"] += 4
+    assert pipe._backends()["launches"] == want
 
 
 def _indel_families(path, length=420):
@@ -141,7 +169,6 @@ def test_run_refine_device_tree_equals_host(tmp_path):
     `--refine host` and of the JAX package's host `run` on the same
     FASTA, and its backends name the refine backend that served each
     multi-row cluster."""
-    import json
     fa = tmp_path / "indels.fa"
     _indel_families(fa)
     yaml = tmp_path / "device.yaml"
@@ -166,7 +193,8 @@ def test_run_refine_device_tree_equals_host(tmp_path):
     assert backends["device"]["align_served"]["device"] == 2
     assert backends["host"]["refine_served"] == {"host": 2}
     assert backends["device"]["refine_served"] == {"device": 2}
-    assert backends["device"]["refine_dp_launches"] == 0
+    launches = backends["device"]["launches"]
+    assert launches["refine_dp"] + launches["refine_dp_warp"] == 0
 
 
 @pytest.mark.parametrize("yaml_text", ["refine_backend: gpu\n", None])

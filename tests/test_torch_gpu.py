@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import IDENTITY, launched
+from multiprime_tpu_torch.ops import _cuda
 from multiprime_tpu_torch.ops import dimer
 from multiprime_tpu_torch.ops import mismatch_scan as ms
 from multiprime_tpu_torch.validate import scan as vscan
@@ -87,9 +89,9 @@ def test_kernel_equals_plain(cuda, plen):
         masks, _, p1h, s1h = edge_inputs(rng, plen, term, n_pat, lo, hi)
         tm = torch.from_numpy(masks).to(cuda)
         planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
-        before = ms.HIT_CODES_LAUNCHES
+        before = _cuda.launches()
         got = ms.hit_codes(tm, planes, sfx, plen=plen, mm=mm, term=term)
-        assert ms.HIT_CODES_LAUNCHES == before + 1
+        assert launched(before, "hit_codes") == 1
         want = ms.hit_codes_reference(tm, planes, sfx, plen=plen, mm=mm,
                                       term=term)
         torch.cuda.synchronize()
@@ -144,9 +146,9 @@ def find_hits_equal_plain(dev, masks, lens, p1h, s1h, mm, term, max_hits):
     kw = dict(plen=p1h.shape[1], mm=mm, term=term, max_hits=max_hits)
     for dtype in (torch.int32, torch.int64):
         tl = torch.from_numpy(lens).to(dev, dtype)
-        before = ms.FIND_HITS_LAUNCHES
+        before = _cuda.launches()
         got = ms.find_hits(tm, tl, planes, sfx, **kw)
-        assert ms.FIND_HITS_LAUNCHES == before + 1
+        assert launched(before, "find_hits") == 1
         want = ms.find_hits_reference(tm, tl, planes, sfx, **kw)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
@@ -239,9 +241,9 @@ def test_match_counts_kernel_equals_plain(cuda, plen):
         p1h = rng.integers(0, 2, size=(n_pat, plen, 4)).astype(np.uint8)
         p1h[0, :plen // 2] = 0                   # left-padding columns
         planes = ms.pattern_planes(p1h, device=cuda)
-        before = ms.MATCH_COUNTS_LAUNCHES
+        before = _cuda.launches()
         got = ms.match_counts_kernel(masks, planes, plen=plen)
-        assert ms.MATCH_COUNTS_LAUNCHES == before + 1
+        assert launched(before, "match_counts") == 1
         want = ms.match_counts_reference(masks, planes, plen=plen)
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and torch.equal(got, want), (
@@ -257,9 +259,9 @@ def test_bitmap_kernel_equals_plain(cuda, plen):
         planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
         kw = dict(plen=plen, mm=mm, term=term)
         # the raw IUPAC masks: R, Y and N are several bases a position
-        before = ms.HIT_WINDOW_BITMAP_LAUNCHES
+        before = _cuda.launches()
         got = ms.hit_window_bitmap_kernel(tm, planes, sfx, **kw)
-        assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
+        assert launched(before, "hit_window_bitmap") == 1
         want = ms.hit_window_bitmap_reference(tm, planes, sfx, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (plen, mm, term, n_pat, masks.shape)
@@ -301,10 +303,10 @@ def test_find_hits_bitmap_on_card(cuda):
                                     letters="ACGTACGTACGTN")
     seqs_1h = ((masks[..., None] >> np.arange(4)) & 1).astype(np.uint8)
     seqs_1h *= np.isin(masks, [1, 2, 4, 8])[..., None]
-    before = ms.HIT_WINDOW_BITMAP_LAUNCHES
+    before = _cuda.launches()
     got = ms.find_hits_bitmap(seqs_1h, lens, p1h, s1h, mm=3, term=2,
                               device=cuda)
-    assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
+    assert launched(before, "hit_window_bitmap") == 1
     planes, sfx = ms.pack_patterns(p1h, s1h, device=cuda)
     idx, n_hits, mism = ms.find_hits(
         torch.from_numpy(masks).to(cuda), torch.from_numpy(lens).to(cuda),
@@ -323,10 +325,10 @@ def test_find_hits_bitmap_multi_base_onehot_on_card(cuda):
     masks, lens, p1h, s1h = _inputs(rng, 30, 100, 600, 60, 13, 2,
                                     letters="ACGTACGTNRYSWKM")
     raw_1h = ((masks[..., None] >> np.arange(4)) & 1).astype(np.uint8)
-    before = ms.HIT_WINDOW_BITMAP_LAUNCHES
+    before = _cuda.launches()
     got = ms.find_hits_bitmap(raw_1h, lens, p1h, s1h, mm=2, term=2,
                               device=cuda)
-    assert ms.HIT_WINDOW_BITMAP_LAUNCHES == before + 1
+    assert launched(before, "hit_window_bitmap") == 1
     want = ms.find_hits_numpy(raw_1h, lens, p1h, s1h, mm=2, term=2)
     assert len(want) > 0 and (want[:, 3] < 0).any()   # counts above plen
     for k, g in enumerate(got):
@@ -344,13 +346,12 @@ def test_dimer_matrices_on_card(cuda):
     primers[5] = primers[5][:8] + "R" + primers[5][9:]
     primers[7] = primers[7][:4] + "N" + primers[7][5:]
     host = dimer.verify_against_host(primers)
-    before = ms.MATCH_COUNTS_LAUNCHES
-    fired = dimer.DIMER_FIRED_LAUNCHES
+    before = _cuda.launches()
     fused = dimer.dimer_hit_matrix_fused(primers, device=cuda)
-    assert dimer.DIMER_FIRED_LAUNCHES == fired + 1
-    assert ms.MATCH_COUNTS_LAUNCHES == before
+    assert launched(before, "dimer_fired") == 1
+    assert launched(before, "match_counts") == 0
     unfused = dimer.dimer_hit_matrix(primers, device=cuda)
-    assert ms.MATCH_COUNTS_LAUNCHES > before
+    assert launched(before, "match_counts") > 0
     assert fused[1, 2]
     assert np.array_equal(fused, host) and np.array_equal(unfused, host)
 
@@ -399,9 +400,9 @@ def dimer_fired_equal_plain(dev, masks, lens, p1h, lns, shifts, z, trig):
             ms.pattern_planes(p1h, device=dev), p1h.shape[1], z,
             torch.from_numpy(lns).to(dev), torch.from_numpy(shifts).to(dev),
             torch.from_numpy(trig).to(dev)]
-    before = dimer.DIMER_FIRED_LAUNCHES
+    before = _cuda.launches()
     got = dimer._fused_kernel(*args)
-    assert dimer.DIMER_FIRED_LAUNCHES == before + 1
+    assert launched(before, "dimer_fired") == 1
     want = dimer._fused_kernel_reference(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.bool and torch.equal(got, want), (
@@ -514,12 +515,11 @@ def stage_a_equal_plain(dev, masks, positions, plen, variation):
     equal, key for key, dtype and value, to its plain version on the card
     and on the CPU -> the number of windows."""
     from multiprime_tpu_torch.ops import design_scan as ds
-    counts = (ds.STAGE_A_ROWS_LAUNCHES, ds.STAGE_A_LAUNCHES,
-              ds.STAGE_A_VITERBI_LAUNCHES)
+    before = _cuda.launches()
     got = ds.design_stats_full(masks, positions, plen=plen,
                                variation=variation, device=dev)
-    assert (ds.STAGE_A_ROWS_LAUNCHES, ds.STAGE_A_LAUNCHES,
-            ds.STAGE_A_VITERBI_LAUNCHES) == tuple(c + 1 for c in counts)
+    assert [launched(before, k) for k in (
+        "stage_a_rows", "stage_a_windows", "stage_a_viterbi")] == [1, 1, 1]
     on_card = ds.design_stats_full_reference(masks, positions, plen=plen,
                                              variation=variation, device=dev)
     on_cpu = ds.design_stats_full_reference(masks, positions, plen=plen,
@@ -578,9 +578,9 @@ def test_stage_a_viterbi_kernel_ties(cuda):
     nn[:8] = 0
     nn[8:16, :, 1:, :] = nn[8:16, :, :1, :]
     freq[16:24] = rng.integers(2 ** 61, 2 ** 62, size=(8, 18, 4))
-    before = ds.STAGE_A_VITERBI_LAUNCHES
+    before = _cuda.launches()
     got = ds.viterbi_batch(freq, nn, device=cuda)
-    assert ds.STAGE_A_VITERBI_LAUNCHES == before + 1
+    assert launched(before, "stage_a_viterbi") == 1
     want = ds.viterbi_batch_reference(freq, nn)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got, ds.viterbi_batch_reference(freq, nn, device=cuda))
@@ -619,12 +619,12 @@ def test_stage_a_sharded_on_a_mesh_of_one_card(cuda):
     want = list(ds.design_stats_blocks(masks, positions, block=128,
                                        device="cpu"))
     mesh = pmesh.Mesh([["cuda:0"] * 2] * 2)
-    before = (ds.STAGE_A_LAUNCHES, ds.STAGE_A_VITERBI_LAUNCHES)
+    before = _cuda.launches()
     got = list(pmesh.design_stats_blocks_sharded(mesh, masks, positions,
                                                  block=128))
     assert len(got) == len(want) == 3
-    assert (ds.STAGE_A_LAUNCHES, ds.STAGE_A_VITERBI_LAUNCHES) == (
-        before[0] + 4 * 3, before[1] + 2 * 3)
+    assert (launched(before, "stage_a_windows"),
+            launched(before, "stage_a_viterbi")) == (4 * 3, 2 * 3)
     for (gp, gs), (wp, ws) in zip(got, want):
         assert np.array_equal(gp, wp) and sorted(gs) == sorted(ws)
         for key in ws:
@@ -641,11 +641,11 @@ def test_design_stats_blocks_card_equals_cpu(cuda, plen, variation):
     kw = dict(plen=plen, variation=variation, block=128)
     want = list(design_scan.design_stats_blocks(masks, positions,
                                                 device="cpu", **kw))
-    before = design_scan.STAGE_A_LAUNCHES
+    before = _cuda.launches()
     got = list(design_scan.design_stats_blocks(masks, positions,
                                                device=cuda, **kw))
     assert len(got) == len(want) == 3
-    assert design_scan.STAGE_A_LAUNCHES == before + 3
+    assert launched(before, "stage_a_windows") == 3
     for (wp, ws), (gp, gs) in zip(want, got):
         assert np.array_equal(wp, gp)
         for key in ws:
@@ -775,11 +775,10 @@ def gotoh_blocks_equal_plain(dev, c, members, block, gotoh="warp"):
     c_dev = torch.from_numpy(c.astype(np.int32)).to(dev)
     for lo in range(0, len(members), block):
         bmat, lbs = adev.gotoh_block_inputs(members[lo:lo + block], device=dev)
-        before = adev.GOTOH_DP_LAUNCHES
-        before_warp = adev.GOTOH_DP_WARP_LAUNCHES
+        before = _cuda.launches()
         got = adev.gotoh_block(c_dev, bmat, lbs)
-        assert adev.GOTOH_DP_LAUNCHES == before + 1
-        assert adev.GOTOH_DP_WARP_LAUNCHES == before_warp + (gotoh == "warp")
+        assert launched(before, "gotoh_dp", "gotoh_dp_warp") == 1
+        assert launched(before, "gotoh_dp_warp") == (gotoh == "warp")
         want = adev.gotoh_block_reference(c, bmat, lbs, dev)
         torch.cuda.synchronize()
         assert got.shape == want.shape and torch.equal(got, want), \
@@ -792,11 +791,10 @@ def refine_block_equal_plain(dev, blk, refine="warp", what="refine block"):
     plain version on ``dev``, one launch, of the kernel named by ``refine``
     ("warp": refine_dp_warp_kernel, "cta": refine_dp_kernel)."""
     from multiprime_tpu_torch.align import device as adev
-    before = adev.REFINE_DP_LAUNCHES
-    before_warp = adev.REFINE_DP_WARP_LAUNCHES
+    before = _cuda.launches()
     got = adev.refine_block(*blk)
-    assert adev.REFINE_DP_LAUNCHES == before + 1
-    assert adev.REFINE_DP_WARP_LAUNCHES == before_warp + (refine == "warp")
+    assert launched(before, "refine_dp", "refine_dp_warp") == 1
+    assert launched(before, "refine_dp_warp") == (refine == "warp")
     want = adev.refine_block_reference(*blk, dev)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.equal(got, want), \
@@ -1044,10 +1042,10 @@ def test_refine_positive_gap_terms_take_cta_kernel(cuda):
     c, members, block = dp_case("homopolymer")
     args = rmod.device_pass_inputs(dp_case_rows(c, members))
     for go, ge in ((1.0, -1.0), (-4.0, 0.5)):
-        before = adev.REFINE_DP_WARP_LAUNCHES
+        before = _cuda.launches()
         got = adev.refine_pass_device(*args, go=go, ge=ge,
                                       member_block=block, device=cuda)
-        assert adev.REFINE_DP_WARP_LAUNCHES == before
+        assert launched(before, "refine_dp_warp") == 0
         assert got == adev.refine_pass_device(*args, go=go, ge=ge,
                                               member_block=block,
                                               device="cpu")
@@ -1190,8 +1188,8 @@ def test_forkserver_workers_run_stage_a_and_gotoh_on_card(cuda, tmp_path):
         n = job["fanout"]["clusters"]
         assert n >= 8
         assert b["stage_a_served"] == b["align_served"] == {"device": n}
-        assert b["stage_a_kernel_launches"] > 0
-        assert b["gotoh_dp_warp_launches"] + b["gotoh_dp_launches"] > 0
+        assert b["launches"]["stage_a_windows"] > 0
+        assert b["launches"]["gotoh_dp_warp"] + b["launches"]["gotoh_dp"] > 0
 
 
 def _planted_background(rng, lengths, pats, near):
@@ -1282,11 +1280,11 @@ def test_find_hits_sharded_on_a_mesh_of_one_card(cuda):
                                     letters="ACGTACGTACGTN")
     plen, n_out, p = 18, masks.shape[1] - 17, p1h.shape[0]
     mesh = pmesh.Mesh([["cuda:0", "cuda:0"]])
-    before = ms.FIND_HITS_LAUNCHES
+    before = _cuda.launches()
     blocks = pmesh.find_hits_sharded(mesh, masks, lens, p1h, s1h, mm=3,
                                      term=2, max_hits_per_shard=8192,
                                      want_mism=True)
-    assert ms.FIND_HITS_LAUNCHES == before + 2
+    assert launched(before, "find_hits") == 2
     got = []
     for si, blk in enumerate(blocks):
         seq, pos, pat, mism, n = ms.decode_packed(blk, n_out, p, 8192)
@@ -1377,12 +1375,12 @@ def test_gotoh_genome_family_blocks_by_bytes_equal_native(cuda,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    launched = adev.GOTOH_DP_LAUNCHES
+    before = _cuda.launches()
     got = adev.align_ops_batch_device(c, members, as_codes=True,
                                       device=cuda)
     peak = torch.cuda.max_memory_allocated() - base
     blocks = -(-len(members) // adev.block_members(per, 512))
-    assert adev.GOTOH_DP_LAUNCHES - launched == blocks
+    assert launched(before, "gotoh_dp", "gotoh_dp_warp") == blocks
     # one block's bytes and the center's codes, each allocation rounded
     # up to whole 2 MiB pages
     assert peak <= adev._DP_BLOCK_BYTES + 4 * len(c) + (32 << 20), peak
@@ -1411,10 +1409,10 @@ def test_refine_msa_card_equals_host_at_genome_width(cuda, genome_family):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    launched = adev.REFINE_DP_LAUNCHES
+    before = _cuda.launches()
     got = refine.refine_msa(rows, 2, backend="device", device=cuda)
     peak = torch.cuda.max_memory_allocated() - base
-    assert adev.REFINE_DP_LAUNCHES - launched >= 2
+    assert launched(before, "refine_dp", "refine_dp_warp") >= 2
     assert got == want
     assert peak <= adev._DP_BLOCK_BYTES + (32 << 20), peak
 
@@ -1453,9 +1451,9 @@ def test_banded_identity_kernel_equals_native(cuda, lo, hi):
     from multiprime_tpu_torch.cluster import identity
     codes, meta = _identity_pairs(np.random.default_rng(lo), 32, lo, hi)
     cd = torch.from_numpy(codes).to(cuda)
-    before = identity.IDENTITY_LAUNCHES
+    before = _cuda.launches()
     got = identity.banded_matches(cd, meta, 64).cpu().numpy()
-    assert identity.IDENTITY_LAUNCHES == before + 1
+    assert launched(before, *IDENTITY) == 1
     plain = identity.banded_matches_reference(cd, meta, 64).cpu().numpy()
     assert np.array_equal(got, plain)
     want = _native_identities(codes, meta)
@@ -1545,9 +1543,9 @@ def test_banded_identity_wide_kernel_equals_native(cuda, key_la):
         32 if key_la < 1 << 14 else 64)
     codes = np.concatenate(seqs)
     cd = torch.from_numpy(codes).to(cuda)
-    before = identity.IDENTITY_LAUNCHES
+    before = _cuda.launches()
     got = identity.banded_matches(cd, meta, 64).cpu().numpy()
-    assert identity.IDENTITY_LAUNCHES == before + 2
+    assert launched(before, *IDENTITY) == 2
     plain = identity.banded_matches_reference(cd, meta, 64).cpu().numpy()
     assert np.array_equal(got, plain)
     want = _native_identities(codes, meta)
@@ -1590,20 +1588,20 @@ def test_windowed_clusters_on_card_equal_host(cuda, length, window, partial,
     filter passes unrelated representatives) and at CDS length, with
     windows cut short and whole, and with partial genomes of 7.1 kb beside
     complete ones (bands past the register kernel: the wide kernel)."""
-    from multiprime_tpu_torch.cluster import greedy, identity
+    from multiprime_tpu_torch.cluster import greedy
     monkeypatch.setattr(greedy, "_WINDOW_PAIRS", window)
     ids, seqs = _cluster_corpus(length, length, 3, 12, 4, partial)
     if partial:
         lens = [len(x) for x in seqs]
         assert max(lens) - min(lens) > 895
     want_order, want = greedy.greedy_cluster(ids, seqs, threads=4)
-    before = identity.IDENTITY_LAUNCHES
+    before = _cuda.launches()
     order, got = greedy.greedy_cluster_windows(ids, seqs, threads=4,
                                                device=cuda)
     assert order == want_order
     assert [(c.rep_index, c.members) for c in got] \
         == [(c.rep_index, c.members) for c in want]
-    assert identity.IDENTITY_LAUNCHES > before
+    assert launched(before, *IDENTITY) > 0
 
 
 _CLUSTER_RUN = r"""
@@ -1646,6 +1644,28 @@ def test_run_clusters_on_card_equal_host_and_fork_from_server(cuda,
                      clstr.read_bytes())
     (host, host_clstr), (dev, dev_clstr) = got["host"], got["device"]
     assert dev_clstr == host_clstr
-    assert host["identity_launches"] == 0
-    assert dev["identity_launches"] > 0
+    assert sum(host["launches"][k] for k in IDENTITY) == 0
+    assert sum(dev["launches"][k] for k in IDENTITY) > 0
     assert dev["pool_start"] == "forkserver"
+
+
+def test_two_runs_in_one_process_report_their_own_launches(cuda, tmp_path,
+                                                           monkeypatch):
+    """Two device `run`s in one process, as the benchmark runs its jobs:
+    each reports its own launches in ``backends["launches"]`` (clustering
+    and the coverage scan on the card), so the second reports what the
+    first did, not the sum of both."""
+    from multiprime_tpu_torch.pipeline import driver
+    monkeypatch.setenv("MPTPU_FORCE_BACKEND", "device")
+    ids, seqs = _cluster_corpus(5, 900, 3, 15, 4)
+    fa = tmp_path / "in.fa"
+    fa.write_text("".join(">%s\n%s\n" % p for p in zip(ids, seqs)))
+    got = []
+    for k in range(2):
+        pipe, _ = driver.run_pipeline(
+            None, input_fa=str(fa), results_dir=str(tmp_path / str(k)),
+            device="cuda", nproc=1)
+        got.append(pipe._backends()["launches"])
+    assert got[0]["find_hits"] > 0
+    assert sum(got[0][k] for k in IDENTITY) > 0
+    assert got[1] == got[0]

@@ -14,7 +14,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from multiprime_tpu_torch.cli import main as tcli
 from multiprime_tpu_torch.ops import _cuda
-from multiprime_tpu_torch.ops import mismatch_scan as ms
 from multiprime_tpu_torch.utils import iupac, trace
 from multiprime_tpu_torch.validate import scan as tscan
 
@@ -209,20 +208,28 @@ class _StubEvent:
         return 2.5                       # ms
 
 
-@pytest.mark.parametrize("on", [True, False])
-def test_launcher_counts_kernel_time_when_on(monkeypatch, on):
-    """A stub library bound as ``_cuda`` binds a kernel's: while the trace
-    records, each launch adds one launch and its events' time to the
-    innermost span; off, nothing is recorded and no event is made.  The
-    test is made at each call of the bound launcher."""
-    calls = []
-
+def _stub_lib(rc, calls):
+    """A library bound as ``_cuda`` binds a kernel's, whose ``stub``
+    launcher records its arguments and returns ``rc``."""
     def stub_launch(*args):
         calls.append(args)
-        return 0
-    lib = types.SimpleNamespace(stub_launch=stub_launch,
-                                stub_error_string=lambda rc: b"")
+        return rc
+    lib = types.SimpleNamespace(
+        stub_launch=stub_launch,
+        stub_error_string=lambda code: b"stub refused %d" % code)
     _cuda._bind(lib, {"stub": ()})
+    return lib
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_launcher_counts_kernel_time_when_on(monkeypatch, on):
+    """``_cuda.launch`` on a stub library: while the trace records, each
+    launch adds one launch and its events' time to the innermost span;
+    off, nothing is recorded and no event is made.  Either way each
+    launch counts once under its prefix."""
+    calls = []
+    lib = _stub_lib(0, calls)
+    monkeypatch.setattr(_cuda, "_LAUNCHED", {})
     made = []
     monkeypatch.setattr(trace, "EVENTS", lambda handle: (
         made.append(handle) or _StubEvent(), _StubEvent(), None))
@@ -230,11 +237,13 @@ def test_launcher_counts_kernel_time_when_on(monkeypatch, on):
         with profile(activities=[ProfilerActivity.CPU]):
             with trace.request("test"):
                 with trace.span("kernel.site"):
-                    ms._launch(lib, "stub", 1, 2, 77)
-                    ms._launch(lib, "stub", 3, 4, 77)
+                    _cuda.launch(lib, "stub", 1, 2, 77)
+                    _cuda.launch(lib, "stub", 3, 4, 77)
     else:
-        ms._launch(lib, "stub", 1, 2, 77)
+        _cuda.launch(lib, "stub", 1, 2, 77)
     assert len(calls) == 2 if on else len(calls) == 1
+    assert _cuda.launches()["stub"] == len(calls)
+    assert sum(_cuda.launches().values()) == len(calls)
     spans = trace.spans()
     if not on:
         assert spans == [] and made == []
@@ -243,6 +252,21 @@ def test_launcher_counts_kernel_time_when_on(monkeypatch, on):
     site = next(s for s in spans if s["name"] == "kernel.site")
     assert site["kernels"] == {"stub": [2, 0.005]}
     assert next(s for s in spans if s["name"] == "test")["kernels"] == {}
+
+
+def test_launcher_raises_on_an_error_code_and_counts_nothing(monkeypatch):
+    """A launcher's non-zero return code raises with the library's error
+    string and the code; the refused launch is not counted."""
+    calls = []
+    lib = _stub_lib(9, calls)
+    monkeypatch.setattr(_cuda, "_LAUNCHED", {"stub": 4})
+    before = _cuda.launches()
+    with pytest.raises(RuntimeError,
+                       match=r"^stub kernel launch failed: stub refused 9 "
+                             r"\(9\)$"):
+        _cuda.launch(lib, "stub", 1, 2, 77)
+    assert calls == [(1, 2, 77)]
+    assert _cuda.launches() == before
 
 
 def test_chrome_export_and_worker_hand_back():
